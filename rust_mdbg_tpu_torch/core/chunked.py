@@ -1,0 +1,322 @@
+"""Chunked construction: device reduction per chunk, native C++ global merge.
+
+Counterpart of the JAX package's `core/chunked.assemble_device_chunked` in
+vector mode (raw reads, density scheme, --minabund <= 16, no --bf).  The
+input streams in fixed-size chunks:
+
+  per chunk (device):   unpack -> HPC -> ntHash + density select (the
+                        nthash_select kernel) -> compaction -> window keys
+                        -> slot append -> per-chunk sort/segment reduce
+  host merge (C++):     nt_merge_chunk accumulates global abundances,
+                        assigns node ids and reports which keys crossed the
+                        min abundance in this chunk, and on which in-chunk
+                        appearance (rust-mdbg src/main.rs:680-707)
+  device gather:        vec + metadata of exactly the crossing occurrences
+  host write:           the chunk's .sequences shard, then the GFA at the end
+
+Node ids follow crossing-occurrence order, so the .gfa is byte-identical
+to the JAX package's on the same input and Params.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from ..io import fastx
+from ..io.sequences import remove_stale, write_records_native
+from ..params import Params, staging_width
+from ..utils.timing import PhaseTimer
+from .graph import build_gfa
+from .nodetable import NodeTable
+
+#: occurrence-slot ceiling (the JAX package's MAX_CHUNK_SLOTS): slots =
+#: minab are carried per unique key, so crossing capture is exact for any
+#: --minabund up to this
+MAX_CHUNK_SLOTS = 16
+
+
+class NotPortedError(RuntimeError):
+    """A path of the JAX package that the port does not run yet."""
+
+    def __init__(self, what: str):
+        super().__init__(f"{what} is not ported yet (see ROADMAP.md)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another; with no GPU and no explicit device this raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain torch versions on the CPU")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_ported(params: Params):
+    """Raise NotPortedError for Params that select a path outside this
+    slice."""
+    from ..ops.sort_count import counter_flags
+
+    if not counter_flags(params)["with_ext"]:
+        # the extent plane is dropped only for pre-HPC input (recompute
+        # mode) and reference-cut spans
+        raise NotPortedError("pre-HPC input (--skiphpc) or reference-cut "
+                             "spans")
+    if params.use_bf:
+        raise NotPortedError("--bf")
+    if params.use_syncmers or params.uhs or params.lcp \
+            or params.has_lmer_counts:
+        raise NotPortedError("minimizer schemes other than density")
+    if params.error_correct:
+        raise NotPortedError("error correction")
+    if params.reference:
+        raise NotPortedError("--reference")
+    if params.min_kmer_abundance > MAX_CHUNK_SLOTS:
+        raise NotPortedError(
+            f"--minabund > {MAX_CHUNK_SLOTS} (the whole-run finalize)")
+
+
+def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
+                            timer: PhaseTimer | None = None,
+                            stats: dict | None = None,
+                            chunk_reads: int = 0, device=None) -> dict:
+    """Bounded-memory chunked construction; writes prefix.gfa and the
+    prefix.<chunk>.sequences shards and returns the run's stats."""
+    from ..ops.extract import capacity
+    from ..ops.kernels import build_all
+    from ..ops.pack import pack_codes_np
+    from ..ops.sort_count import (DeviceNodeCounter, construct_batches,
+                                  window_slot_capacity)
+
+    dev = resolve_device(device)
+    check_ported(params)
+    timer = timer or PhaseTimer()
+    stats = stats if stats is not None else {}
+
+    mean_len, mx = fastx.read_first_n_reads(reads_path, 100)
+    L = params.max_read_len or staging_width(mx)
+    B = params.batch_reads
+    M = capacity(params, L)
+
+    if chunk_reads <= 0:
+        # target ~0.15 GB of window/minimizer buffers per chunk; host
+        # staging RSS scales with chunk size, and the chunk is never sized
+        # past the input itself (+10%, power-of-2 rounded)
+        per_read = 20 * window_slot_capacity(params, B, L, M) + 12 * M
+        chunk_reads = max(B, int(1.5e8 / per_read) // B * B)
+        fsize = os.path.getsize(reads_path)
+        if str(reads_path).endswith((".gz", ".lz4")):
+            fsize *= 6
+        est = max(B, int(1.1 * fsize / max(1, mean_len)))
+        cap2 = B
+        while cap2 < est:
+            cap2 *= 2
+        chunk_reads = min(chunk_reads, cap2)
+    else:
+        # small forced chunks (tests): shrink the batch to fit the chunk
+        B = min(B, chunk_reads)
+        chunk_reads = (chunk_reads // B) * B
+    n_batches = chunk_reads // B
+
+    W_slot = window_slot_capacity(params, B, L, M)
+    counter = DeviceNodeCounter(
+        k=params.k, M=M, read_cap=chunk_reads, w_slot=W_slot,
+        chunk_slots=min(params.min_kmer_abundance, MAX_CHUNK_SLOTS),
+        device=dev)
+    packed = L % 8 == 0  # 2-bit+mask feed (ops/pack); L is 512-aligned
+    # chunks whose longest read fits L/2 feed at half width (L carries 2x
+    # headroom over the sampled max read length)
+    L_half = L // 2 if (L // 2) % 512 == 0 and L // 2 >= 1024 else 0
+
+    # the kernel build is this port's compile phase (nvcc, first use only)
+    with timer.phase("compile"):
+        if dev.type == "cuda":
+            build_all()
+    table = NodeTable(
+        min_abundance=params.min_kmer_abundance,
+        use_bf=params.use_bf,
+        bloom_log2_bits=params.bloom_log2_bits,
+        keep_all=params.reference,
+        capacity_hint=1 << 22,
+    )
+
+    remove_stale(prefix)
+    nb_reads = 0
+    nb_windows = 0
+    h2d_bytes = 0
+    chunk_i = 0
+    vec_ids: list[np.ndarray] = []
+    vec_arrs: list[np.ndarray] = []   # [n, k] u64 vectors
+
+    def flush_chunk(staged, lens_d, ready, blob, blob_off, fill):
+        """One chunk through: device reduce -> native merge -> crossing
+        gather -> .sequences shard."""
+        nonlocal chunk_i, nb_windows
+        with timer.phase("construct"):
+            if ready is not None:
+                # the stager copied on its own stream: wait for it, and
+                # tell the allocator these tensors are used on this stream
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_event(ready)
+                for t in (*staged, lens_d):
+                    t.record_stream(cur)
+            if not packed:
+                staged = staged[0]
+            nbat = min(n_batches, (fill + B - 1) // B)
+            _n, n_over = construct_batches(
+                params, staged, lens_d, counter.buffers, B=B, M=M,
+                w_slot=W_slot, batch_lo=0, batch_hi=nbat)
+            res = counter.finalize_chunk()
+            n_over = int(n_over)
+            del staged, lens_d
+        if n_over:
+            raise RuntimeError(
+                f"{n_over} reads overflowed minimizer capacity")
+        with timer.phase("merge"):
+            sel, _ = table.merge_chunk(
+                res["key_lo"], res["key_hi"], res["count"])
+            nb_windows += int(res["count"].sum())
+        cross = np.nonzero(sel)[0]
+        if cross.size:
+            occs = counter.occ_at_chunk(cross, sel[cross])
+            # node ids are assigned in crossing-OCCURRENCE order
+            order = np.argsort(occs, kind="stable")
+            cross = cross[order]
+            occs = occs[order]
+            with timer.phase("gather"):
+                vec, meta = counter.gather_crossing(occs)
+            seqlen = meta[:, 0].astype(np.uint32)
+            shift0 = (meta[:, 1] & 0x7FFFFFFF).astype(np.uint16)
+            shift1 = (meta[:, 2] & 0x7FFFFFFF).astype(np.uint16)
+            rev = (meta[:, 2] >> 31).astype(np.uint8)
+            # exact-cut corrections (extpack column, raw inputs)
+            ext_delta = (meta[:, 5] >> 16).astype(np.int64)
+            de1 = (meta[:, 5] & 0xFFFF).astype(np.int64) - 0x8000
+            r = rev.astype(bool)
+            seq_shift0 = np.where(r, shift0 + de1, shift0).astype(np.uint16)
+            seq_shift1 = np.where(r, shift1, shift1 + de1).astype(np.uint16)
+            with timer.phase("meta"):
+                index_c = table.set_meta_batch(res["key_lo"][cross],
+                                               res["key_hi"][cross],
+                                               seqlen, shift0, shift1)
+                vec_ids.append(index_c)
+                vec_arrs.append(vec)
+            if not params.no_basespace:
+                with timer.phase("sequences"):
+                    start = meta[:, 3].astype(np.int64)
+                    rows = meta[:, 4].astype(np.int64)
+                    abs_start = blob_off[rows] + start
+                    abs_end = abs_start + seqlen + (params.l - 2) + ext_delta
+                    write_records_native(
+                        f"{prefix}.{chunk_i}.sequences", params.k, params.l,
+                        index_c, vec, blob, abs_start, abs_end, rev,
+                        seq_shift0, seq_shift1, hash_bound=0, mpos=None)
+        with timer.phase("reset"):
+            counter.reset_chunk()
+        chunk_i += 1
+
+    from .fastx_feed import stream_chunks
+
+    it = iter(stream_chunks(reads_path, chunk_reads, B, L, mean_len))
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def fetch_and_stage():
+        """Pull the next parsed chunk, pack it and copy it to the device
+        (on the side stream for CUDA, recording an event the consumer
+        waits on)."""
+        nonlocal h2d_bytes
+        while True:
+            tup = next(it, None)
+            if tup is None:
+                return None
+            codes, lens, blob, blob_off, fill = tup
+            if fill == 0:
+                continue
+            if codes.shape[1] != L:
+                raise RuntimeError("read longer than staging width")
+            if L_half and int(lens[:fill].max()) <= L_half:
+                codes = np.ascontiguousarray(codes[:, :L_half])
+            host = pack_codes_np(codes) if packed else (codes,)
+            del codes, tup
+            h2d_bytes += sum(a.nbytes for a in host) + lens.nbytes
+            ready = None
+            if side is not None:
+                with torch.cuda.stream(side):
+                    staged = tuple(torch.from_numpy(a).to(dev) for a in host)
+                    lens_d = torch.from_numpy(lens).to(dev)
+                    ready = torch.cuda.Event()
+                    ready.record(side)
+            else:
+                staged = tuple(torch.from_numpy(a).to(dev) for a in host)
+                lens_d = torch.from_numpy(lens).to(dev)
+            return staged, lens_d, ready, blob, blob_off, fill
+
+    # Double-buffered feed: a staging thread packs and copies chunk N+1
+    # while the main thread runs chunk N's construct + host merge/emit.
+    q: "queue.Queue" = queue.Queue(maxsize=1)
+    stop_feed = threading.Event()
+
+    def _stager():
+        while not stop_feed.is_set():
+            try:
+                item = fetch_and_stage()
+            except BaseException as e:  # surfaced on the main thread
+                item = e
+            # bounded put that notices a consumer abort
+            while not stop_feed.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            if item is None or isinstance(item, BaseException):
+                return
+
+    stager = threading.Thread(target=_stager, daemon=True)
+    stager.start()
+    try:
+        with timer.phase("stream"):
+            while True:
+                with timer.phase("feed-wait"):
+                    item = q.get()
+                if isinstance(item, BaseException):
+                    raise item
+                if item is None:
+                    break
+                nb_reads += item[5]
+                flush_chunk(*item)
+    finally:
+        stop_feed.set()
+        stager.join(timeout=60)
+
+    stats["nb_reads"] = nb_reads
+    stats["nb_windows"] = nb_windows
+    stats["nb_nodes_prefilter"] = len(table)
+    stats["nb_chunks"] = chunk_i
+    stats["h2d_bytes"] = h2d_bytes
+
+    with timer.phase("gfa"):
+        if params.min_kmer_abundance > 1:
+            table.retain(params.min_kmer_abundance)
+        nodes = table.dump(params.min_kmer_abundance)
+        order = (np.argsort(np.concatenate(vec_ids), kind="stable")
+                 if vec_ids else np.zeros(0, dtype=np.int64))
+        varr = (np.concatenate(vec_arrs) if vec_arrs
+                else np.zeros((0, params.k), dtype=np.uint64))[order]
+        if len(varr) != len(nodes["index"]):
+            raise RuntimeError("crossing set diverged from passing set")
+        g = build_gfa(f"{prefix}.gfa", nodes, varr, presimp=params.presimp)
+    stats.update(g)
+    stats["phases"] = timer.report()
+    stats["phase_stats"] = timer.report_stats()
+    return stats

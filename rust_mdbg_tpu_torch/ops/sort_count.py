@@ -1,0 +1,272 @@
+"""Chunk-resident k-min-mer counting: construct -> sort -> segment-reduce.
+
+Counterpart of the chunked half of the JAX package's `ops/sort_count.py`.
+Every batch's VALID window keys (128-bit canonical fingerprints from
+ops/extract) are compacted into fixed per-batch slots of the counter
+buffers, beside their window coordinate occ = read_row * W + w and the
+compacted per-read minimizer rows mh/mp/mpe.  Per chunk, one reduction
+sorts the keys with occ as the last sort key, finds segment heads and
+returns the unique keys with their counts in first-occurrence order; the
+window metadata of a node's crossing occurrence is rebuilt later by
+gathering k-slices of mh/mp.
+
+Buffers (a tuple of tensors on the counter's device; u64 and u32 values
+are held as int64 bit patterns, see ops/u64.py):
+
+  b_lo, b_hi  int64 [read_cap * W_slot]  key halves, all-ones = empty
+  b_occ       int64 [read_cap * W_slot]  occ, 0xFFFFFFFF = empty
+  b_mh        int64 [read_cap, M]        minimizer hashes
+  b_mp        int32 [read_cap, M]        raw minimizer positions
+  b_mpe       int32 [read_cap, M]        extent ends minus l
+
+Buffers are updated in place (the JAX package donates and replaces them).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import u64
+from .extract import extract_count
+from .kminmer import canonicalize
+from .pack import unpack_codes
+
+
+def counter_flags(params) -> dict:
+    """Buffer-layout flags a counter shares with the construct: the
+    exact-cut extent plane (raw inputs) and the --bf bit tensor."""
+    return dict(
+        with_ext=not (params.reads_already_hpc
+                      or getattr(params, "seq_ref_cuts", False)),
+        use_bf=(params.use_bf and params.min_kmer_abundance > 1
+                and not params.reference),
+        bloom_log2_bits=params.bloom_log2_bits,
+    )
+
+
+def window_slot_capacity(params, B: int, L: int, M: int) -> int:
+    """Per-read compacted window slots W_slot for the batch-slot layout.
+
+    Valid windows per read are a PREFIX (window w needs minimizers w..w+k-1),
+    so per-batch compaction packs sum(nw) rows into a fixed B*W_slot slot.
+    Batch sums concentrate: sigma(sum)/B = sigma_read/sqrt(B), so W_slot =
+    E[nw] + 8*sigma_read/sqrt(B) (+pad) is ~1.1x the mean while overflow
+    probability is ~1e-15 per batch; overflowing batches are counted and the
+    driver raises."""
+    W = M - params.k + 1
+    rate = min(1.0, params.density * 2)
+    expect = max(0.0, L * rate - (params.k - 1))
+    sigma = math.sqrt(max(1.0, L * rate * (1 - rate)))
+    w = int(expect + 8.0 * sigma / math.sqrt(max(1, B)) + 9)
+    return max(8, min(W, (w + 7) & ~7))
+
+
+def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
+                      M: int, w_slot: int, batch_lo: int, batch_hi: int,
+                      read_base: int = 0):
+    """Extract batches [batch_lo, batch_hi) of a staged chunk and append
+    their window keys and minimizer rows to `buffers` (in place).
+
+    all_codes is either the codes tensor [n*B, L] u8 or the packed feed
+    (packed [n*B, L//4], mask [n*B, L//8]) from ops.pack.pack_codes_np,
+    unpacked per batch.  Returns device scalars (n_windows, n_overflow);
+    n_overflow counts minimizer-capacity reads plus window-slot batches.
+    """
+    b_lo, b_hi, b_occ, b_mh, b_mp, b_mpe = buffers
+    dev = b_lo.device
+    W = M - params.k + 1
+    S = B * w_slot
+    pos = torch.arange(S, device=dev)
+    n_win = torch.zeros((), dtype=torch.int64, device=dev)
+    n_over = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(batch_lo, batch_hi):
+        r = slice(i * B, (i + 1) * B)
+        if isinstance(all_codes, tuple):
+            codes = unpack_codes(all_codes[0][r], all_codes[1][r])
+        else:
+            codes = all_codes[r]
+        out = extract_count(codes, all_lengths[r], l=params.l, k=params.k,
+                            hash_bound=params.hash_bound, M=M)
+        row0 = read_base + i * B
+        # batch-slot compaction: valid windows are a per-read prefix, so
+        # output position p maps to (row, w) via the rank of p in the
+        # cumulative per-read window counts
+        offs = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+        offs[1:] = torch.cumsum(out["nw"], dim=0)
+        nv = offs[B]
+        row = torch.clamp(torch.searchsorted(offs[1:], pos, right=True),
+                          max=B - 1)
+        w = pos - offs[row]
+        valid = pos < torch.clamp(nv, max=S)
+        src = torch.clamp(row * W + w, 0, B * W - 1)
+        keys_flat = out["keys"].reshape(B * W, 2)
+        slot0 = row0 * w_slot
+        b_lo[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 0],
+                                              u64.SENTINEL)
+        b_hi[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 1],
+                                              u64.SENTINEL)
+        b_occ[slot0 : slot0 + S] = torch.where(
+            valid, ((row0 + row) * W + w) & u64.U32_MAX, u64.U32_MAX)
+        b_mh[row0 : row0 + B] = out["mh"]
+        b_mp[row0 : row0 + B] = out["mp"]
+        # extent plane biased by -l (see gather_window_meta)
+        b_mpe[row0 : row0 + B] = out["mpe"] - params.l
+        n_over += out["overflow"].sum() + (nv > S)
+        n_win += torch.clamp(nv, max=S)
+    return n_win, n_over
+
+
+def finalize_chunk(b_lo, b_hi, b_occ, *, slots: int):
+    """Per-chunk reduction: the chunk's unique keys in first-occurrence
+    order, with per-chunk counts and the occurrences of their first `slots`
+    in-chunk appearances (valid where count >= j).
+
+    Keys sort by (lo, hi) unsigned, then occ; node ids downstream follow
+    crossing-occurrence order, so only the order within a key (by occ)
+    matters, and occ is unique per valid row.
+
+    Returns (key_lo, key_hi, count, occs) on the buffers' device, n_unique
+    rows each; raises if the unique keys exceed the buffer (the JAX
+    package's node_cap = N - 1 overflow).
+    """
+    N = b_lo.shape[0]
+    perm = u64.lexsort([b_lo, b_hi, b_occ], [True, True, False])
+    slo, shi, socc = b_lo[perm], b_hi[perm], b_occ[perm]
+    sval = ~((slo == u64.SENTINEL) & (shi == u64.SENTINEL))
+    n_valid = sval.sum()
+    head = sval.clone()
+    head[1:] &= (slo[1:] != slo[:-1]) | (shi[1:] != shi[:-1])
+    head_pos = torch.nonzero(head).flatten()
+    n_unique = head_pos.shape[0]
+    if n_unique > N - 1:
+        raise RuntimeError("chunk unique keys exceeded window capacity")
+    next_head = torch.cat([head_pos[1:], n_valid.reshape(1)])
+    counts = next_head - head_pos
+    occ_idx = torch.clamp(
+        head_pos[:, None] + torch.arange(slots, device=b_lo.device)[None, :],
+        max=N - 1)
+    occs = socc[occ_idx]
+    order = torch.argsort(socc[head_pos], stable=True)
+    return (slo[head_pos][order], shi[head_pos][order], counts[order],
+            occs[order])
+
+
+def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None):
+    """Reconstruct (canonical vec, meta) for chunk-local window occurrences
+    by gathering k-slices of the compact minimizer rows.
+
+    meta int64 [n, 5] holds u32 values: (seqlen, shift0 | 1<<31,
+    shift1 | rev<<31, start, row); with b_mpe (raw inputs) a 6th column
+    packs the exact-cut corrections (end_ext - end) << 16 |
+    (d_last_e - d_last + 0x8000), both clipped to 16 bits as in the JAX
+    package."""
+    W = M - k + 1
+    rows = occs // W
+    wins = occs % W
+    base = rows * M + wins
+    gidx = base[:, None] + torch.arange(k, device=occs.device)[None, :]
+    vec_f = b_mh.reshape(-1)[gidx]
+    pos_f = b_mp.reshape(-1)[gidx].long()
+    canon_vec, rev = canonicalize(vec_f)
+    d_first = pos_f[:, 1] - pos_f[:, 0]
+    d_last = pos_f[:, k - 1] - pos_f[:, k - 2]
+    shift0 = torch.where(rev, d_last, d_first)
+    shift1 = torch.where(rev, d_first, d_last)
+    seqlen = pos_f[:, k - 1] - pos_f[:, 0] + 2
+    cols = [seqlen, shift0 | (1 << 31), shift1 | (rev.long() << 31),
+            pos_f[:, 0], rows]
+    if b_mpe is not None:
+        pe = b_mpe.reshape(-1)[base[:, None] + torch.tensor(
+            [k - 2, k - 1], device=occs.device)[None, :]].long()
+        # b_mpe holds extent_end - l, so ext_delta = end_ext - (pos + l)
+        ext_delta = pe[:, 1] - pos_f[:, k - 1]
+        de1 = (pe[:, 1] - pe[:, 0]) - d_last
+        cols.append((torch.clamp(ext_delta, 0, 0xFFFF) << 16)
+                    | torch.clamp(de1 + 0x8000, 0, 0xFFFF))
+    meta = torch.stack(cols, dim=-1) & u64.U32_MAX
+    return canon_vec, meta
+
+
+def buffers_from_numpy(bufs, device) -> tuple:
+    """The JAX counter's buffers as numpy (u64 lo/hi, u32 occ, u64 mh,
+    i32 mp[, i32 mpe]) -> this module's tensors on `device` (copies: the
+    construct updates them in place)."""
+    lo, hi, occ, mh, mp = bufs[:5]
+    def i_plane(a, dt):
+        return torch.from_numpy(np.asarray(a, dtype=dt)).to(device, copy=True)
+
+    out = (u64.from_numpy(lo, device), u64.from_numpy(hi, device),
+           i_plane(occ, np.int64), u64.from_numpy(mh, device),
+           i_plane(mp, np.int32))
+    return out + tuple(i_plane(b, np.int32) for b in bufs[5:])
+
+
+def buffers_to_numpy(bufs) -> tuple:
+    """Inverse of buffers_from_numpy."""
+    lo, hi, occ, mh, mp = bufs[:5]
+    out = (u64.to_numpy(lo), u64.to_numpy(hi),
+           occ.cpu().numpy().astype(np.uint32), u64.to_numpy(mh),
+           mp.cpu().numpy())
+    return out + tuple(b.cpu().numpy() for b in bufs[5:])
+
+
+class DeviceNodeCounter:
+    """Counter buffers for one chunk of reads, plus the per-chunk reduction
+    and crossing gathers the chunked driver calls (raw inputs: the extent
+    plane is always carried)."""
+
+    def __init__(self, k: int, M: int, read_cap: int, w_slot: int,
+                 chunk_slots: int, device):
+        self.k = k
+        self.M = M
+        self.chunk_slots = max(1, chunk_slots)
+        dev = torch.device(device)
+        n = read_cap * w_slot
+        self.buffers = (
+            torch.full((n,), u64.SENTINEL, dtype=torch.int64, device=dev),
+            torch.full((n,), u64.SENTINEL, dtype=torch.int64, device=dev),
+            torch.full((n,), u64.U32_MAX, dtype=torch.int64, device=dev),
+            torch.zeros((read_cap, M), dtype=torch.int64, device=dev),
+            torch.zeros((read_cap, M), dtype=torch.int32, device=dev),
+            torch.zeros((read_cap, M), dtype=torch.int32, device=dev),
+        )
+        self._chunk_occs = None  # [n_unique, slots] of the last chunk
+
+    def finalize_chunk(self) -> dict:
+        """Reduce the current chunk: unique keys (numpy u64) with per-chunk
+        counts (u32) in first-occurrence order.  The occurrence matrix stays
+        on the device for occ_at_chunk."""
+        lo, hi, cnt, occs = finalize_chunk(*self.buffers[:3],
+                                           slots=self.chunk_slots)
+        self._chunk_occs = occs
+        return dict(key_lo=u64.to_numpy(lo), key_hi=u64.to_numpy(hi),
+                    count=cnt.cpu().numpy().astype(np.uint32),
+                    n_unique=int(lo.shape[0]))
+
+    def occ_at_chunk(self, rows: np.ndarray, sel: np.ndarray) -> np.ndarray:
+        """Window occurrences of the sel-th (1-based) in-chunk appearance of
+        the given unique-key rows of the last finalize_chunk."""
+        dev = self._chunk_occs.device
+        r = torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(dev)
+        s = torch.from_numpy(np.asarray(sel, dtype=np.int64) - 1).to(dev)
+        return self._chunk_occs[r, s].cpu().numpy().astype(np.uint32)
+
+    def gather_crossing(self, occs: np.ndarray):
+        """(canonical vec u64 [n, k], meta u32 [n, 6]) for chunk-local
+        window occurrences, gathered on the device."""
+        dev = self.buffers[0].device
+        o = torch.from_numpy(np.asarray(occs, dtype=np.int64)).to(dev)
+        vec, meta = gather_window_meta(self.buffers[3], self.buffers[4], o,
+                                       k=self.k, M=self.M,
+                                       b_mpe=self.buffers[5])
+        return u64.to_numpy(vec), meta.cpu().numpy().astype(np.uint32)
+
+    def reset_chunk(self):
+        """Refill the key planes with the empty sentinel (stale occ/mh/mp
+        rows are unreachable: gathers only follow valid keys)."""
+        self._chunk_occs = None
+        self.buffers[0].fill_(u64.SENTINEL)
+        self.buffers[1].fill_(u64.SENTINEL)

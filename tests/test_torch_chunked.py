@@ -1,0 +1,131 @@
+"""The port's slice as a whole: chunked construction on the CPU against the
+JAX package's `assemble_device_chunked`, plus the port's import and device
+guards.
+
+The corpus is generated here (synthetic raw reads with homopolymers, N runs
+and ragged lengths), never read from an external example.  The .gfa must
+be byte-identical and the .sequences records equal.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rust_mdbg_tpu.core.chunked import assemble_device_chunked as jax_chunked
+from rust_mdbg_tpu.io.sequences import iter_sequences
+from rust_mdbg_tpu.params import Params as JaxParams
+from rust_mdbg_tpu_torch.cli import main as cli_main
+from rust_mdbg_tpu_torch.core.chunked import (NotPortedError,
+                                              assemble_device_chunked)
+from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
+from rust_mdbg_tpu_torch.params import Params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KW = dict(k=7, l=12, density=0.01, min_kmer_abundance=2)
+
+
+@pytest.fixture(scope="module")
+def reads(tmp_path_factory):
+    """~600 kbp of 1.5 kb reads over a 30 kb genome with 20% segmental
+    duplications; a third of the reads are cut short and some carry N runs
+    or an 'other' base."""
+    d = tmp_path_factory.mktemp("corpus")
+    raw = str(d / "raw.fa")
+    write_synthetic_reads(raw, genome_mbp=0.03, coverage=20, read_len=1500,
+                          error_rate=0.003, seed=11, repeat_frac=0.2)
+    rng = np.random.default_rng(12)
+    out = []
+    with open(raw) as f:
+        lines = f.read().split("\n")
+    for name, seq in zip(lines[0::2], lines[1::2]):
+        s = bytearray(seq.encode())
+        if rng.random() < 0.33:
+            s = s[: int(rng.integers(300, 1500))]
+        if rng.random() < 0.1:
+            j = int(rng.integers(0, len(s) - 4))
+            s[j : j + 3] = b"NNN"
+        if rng.random() < 0.05:
+            s[int(rng.integers(0, len(s)))] = ord("R")
+        out.append(f"{name}\n{s.decode()}\n")
+    path = str(d / "reads.fa")
+    with open(path, "w") as f:
+        f.write("".join(out))
+    return path
+
+
+def _records(prefix):
+    return sorted(json.dumps(r, sort_keys=True, default=str)
+                  for r in iter_sequences(prefix))
+
+
+@pytest.mark.parametrize("chunk_reads", [64, 256])
+def test_chunked_matches_jax(tmp_path, reads, chunk_reads):
+    pj = str(tmp_path / "jax")
+    pt = str(tmp_path / "torch")
+    sj = jax_chunked(reads, JaxParams(engine="device", **KW), pj,
+                     chunk_reads=chunk_reads)
+    st = assemble_device_chunked(reads, Params(**KW), pt,
+                                 chunk_reads=chunk_reads, device="cpu")
+    gj = open(pj + ".gfa", "rb").read()
+    assert gj == open(pt + ".gfa", "rb").read()
+    assert _records(pj) == _records(pt)
+    assert st["nb_nodes"] == sj["nb_nodes"] > 100
+    assert st["nb_edges"] == sj["nb_edges"] > 100
+    assert st["nb_chunks"] == sj["nb_chunks"] > 1
+    assert st["nb_windows"] == sj["nb_windows"]
+
+
+def test_cli_runs_the_slice(tmp_path, reads):
+    p = str(tmp_path / "cli")
+    q = str(tmp_path / "fn")
+    assert cli_main([reads, "-k", "7", "-l", "12", "-d", "0.01",
+                     "--minabund", "2", "--prefix", p, "--device", "cpu",
+                     "--chunk-reads", "128"]) == 0
+    assemble_device_chunked(reads, Params(**KW), q, chunk_reads=128,
+                            device="cpu")
+    assert open(p + ".gfa", "rb").read() == open(q + ".gfa", "rb").read()
+
+
+@pytest.mark.parametrize("flag", [["--bf"], ["--skiphpc"], ["--mesh", "4"],
+                                  ["--error-correct"]])
+def test_cli_rejects_unported_paths(tmp_path, reads, flag):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli_main([reads, "-k", "7", "--device", "cpu",
+                  "--prefix", str(tmp_path / "x")] + flag)
+
+
+def test_unported_params_raise(tmp_path, reads):
+    for kw in (dict(reads_already_hpc=True), dict(use_bf=True),
+               dict(min_kmer_abundance=17)):
+        with pytest.raises(NotPortedError, match="ROADMAP.md"):
+            assemble_device_chunked(reads, Params(**{**KW, **kw}),
+                                    str(tmp_path / "x"), device="cpu")
+
+
+def test_import_pulls_in_no_jax():
+    """Importing every module of the port loads neither jax nor the JAX
+    package."""
+    code = (
+        "import importlib, pathlib, sys\n"
+        "root = pathlib.Path('rust_mdbg_tpu_torch')\n"
+        "for f in sorted(root.rglob('*.py')):\n"
+        "    importlib.import_module('.'.join(f.with_suffix('').parts))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'rust_mdbg_tpu' or m.startswith('rust_mdbg_tpu.')]\n"
+        "assert 'rust_mdbg_tpu_torch.core.chunked' in sys.modules\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_device_without_cuda_raises(tmp_path, reads, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        assemble_device_chunked(reads, Params(**KW), str(tmp_path / "x"))
