@@ -8,9 +8,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. the card's name and power limit (nvidia-smi), and the nvcc build of
    every kernel under rust_mdbg_tpu_torch/csrc/ (one nvcc per source, all
    started together);
-2. each kernel against its plain torch version on the card, at the shape
-   the main path gives it, with exact (integer) comparison, and timed with
-   CUDA events after warm-up;
+2. each kernel against its plain torch version on the card, with exact
+   (integer) comparison: at the shape the main path gives it, timed with
+   CUDA events after warm-up, and at small ragged shapes (l from 1 to 64,
+   odd L, an unaligned row slice, edge rows, N and code 5 in the tile
+   halos);
 3. slice parity: a small synthetic corpus through the port on "cuda" and on
    "cpu" — the .gfa must be byte-identical and the .sequences records equal;
 4. the main path at users' scale: the bench.py corpus shape (20 Mbp genome,
@@ -18,7 +20,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ~1.04 Gbp) at the reference's HG002 parameters k=21, l=14, d=0.003,
    minabund 2, through `assemble_device_chunked(device="cuda")`.  Kernel
    launch counts are set to 0 just before and read just after; every
-   kernel of the path must have launched.
+   kernel of the path must have launched;
+5. the construct breakdown: torch.profiler over one chunk of that corpus
+   (construct_batches + finalize_chunk, after a warm-up), device time by
+   kernel name, and the device's busy time over the profiled window and
+   over the same chunk's unprofiled wall time.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -68,53 +74,99 @@ def cuda_time_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _nthash_batch(np, seed: int, B: int, L: int, l: int):
+    """Codes with N (4) sprinkled in, ragged lengths with the edge rows 0,
+    1, l-1 and L, HPC padding (4) past each length, code 5 in the last
+    columns of a row, and N and code 5 in every tile's halo (the l-1
+    columns past each 4,096-position tile)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.001] = 4
+    lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lengths[:4] = [0, 1, min(max(0, l - 1), L), L]
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 4
+    codes[-1, -7:] = 5
+    for t0 in range(4096, L, 4096):
+        halo = codes[4:, t0 : t0 + l - 1]
+        halo[rng.random(halo.shape) < 0.2] = 4
+        halo[rng.random(halo.shape) < 0.2] = 5
+    return codes, lengths
+
+
+def _mismatches(torch, got, want) -> int:
+    return int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+
+
 def check_nthash_select(torch, np, hash_bound: int) -> dict:
-    """The kernel vs its plain version at the main path's batch shape."""
+    """The kernel vs its plain version: at the main path's batch shape,
+    timed, and at small ragged shapes for l from 1 to 64, odd L, and a row
+    slice at an unaligned offset."""
     from rust_mdbg_tpu_torch.ops import kernels
 
-    B, L, l = 512, 24576, 14
-    rng = np.random.default_rng(7)
-    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
-    codes[rng.random((B, L)) < 0.001] = 4            # some N
-    lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
-    lengths[:4] = [0, 1, l - 1, L]                   # edge rows
-    codes[np.arange(L)[None, :] >= lengths[:, None]] = 4   # HPC padding
-    codes[-1, -7:] = 5
     dev = torch.device("cuda")
+    cases = {}
+    small = [((24, 12291), l, 0) for l in (1, 13, 14, 31, 32, 64)]
+    small += [((25, 12291), 14, 3), ((25, 4099), 64, 3), ((9, 37), 14, 0),
+              ((9, 37), 64, 0), ((16, 5008), 31, 0)]
+    for (B, L), l, skip in small:
+        codes, lengths = _nthash_batch(np, 100 + l, B, L, l)
+        # a row slice of a contiguous tensor: rows start at skip * L bytes
+        c = torch.from_numpy(codes).to(dev)[skip:]
+        n = torch.from_numpy(lengths).to(dev)[skip:]
+        want = kernels.nthash_select_plain(c, l, hash_bound, n)
+        key = f"[{B - skip}, {L}] l={l}" + (f" rows {skip}:" if skip else "")
+        cases[key] = _mismatches(
+            torch, kernels.nthash_select(c, l, hash_bound, n), want)
+
+    B, L, l = 512, 24576, 14
+    codes, lengths = _nthash_batch(np, 7, B, L, l)
     c = torch.from_numpy(codes).to(dev)
     n = torch.from_numpy(lengths).to(dev)
-
-    canon_k, sel_k = kernels.nthash_select(c, l, hash_bound, n)
     canon_p, sel_p = kernels.nthash_select_plain(c, l, hash_bound, n)
+    canon_k, sel_k = kernels.nthash_select(c, l, hash_bound, n)
     torch.cuda.synchronize()
     bad = (canon_k != canon_p) | (sel_k != sel_p)
-    mismatches = int(bad.sum())
+    main_mismatches = int(bad.sum())
     max_abs_err = 0.0
-    if mismatches:
+    if main_mismatches:
         ck = canon_k[bad].cpu().numpy().view(np.uint64).astype(object)
         cp = canon_p[bad].cpu().numpy().view(np.uint64).astype(object)
         max_abs_err = float(max(abs(int(a) - int(b)) for a, b in zip(ck, cp)))
     n_sel = int(sel_k.sum())
+    del canon_k, sel_k, canon_p, sel_p
 
     ms = cuda_time_ms(lambda: kernels.nthash_select(c, l, hash_bound, n), 50)
     plain_ms = cuda_time_ms(
         lambda: kernels.nthash_select_plain(c, l, hash_bound, n), 5)
+    # a streaming yardstick, not the same function: torch's fill of the
+    # kernel's two outputs, the write stream alone (9 B/position)
+    out64 = torch.empty((B, L), dtype=torch.int64, device=dev)
+    out8 = torch.empty((B, L), dtype=torch.bool, device=dev)
+    fill_ms = cuda_time_ms(lambda: (out64.fill_(0), out8.fill_(False)), 50)
+    fill_bytes = B * L * (8 + 1)
+    del out64, out8
     # least time: each input read once (codes 1 B + lengths 4 B/row), each
-    # output written once (canon 8 B + sel 1 B); or the operations: per
-    # position and window term, two 64-bit rotates (2 funnel shifts each)
-    # and two 64-bit XORs (2 lane ops each), all as 32-bit lane ops
+    # output written once (canon 8 B + sel 1 B); the bound is the bytes.
+    # Operations, printed beside it for information only: the rolling
+    # design issues ~35 thread instructions per position (one roll step of
+    # 2 byte extracts, a 16-byte table load, 2 64-bit rotates by 1 and
+    # XORs, the unsigned 64-bit min and the sel test, plus l/16 warm-up
+    # steps and the staging), an estimate counted as 32-bit lane operations
     nbytes = B * L * (1 + 8 + 1) + B * 4
-    nops = B * L * l * 8
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    nops = B * L * 35
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / INT32_OPS_PER_S * 1e3
     return dict(
         name="nthash_select", route="cuda",
         source="rust_mdbg_tpu_torch/csrc/nthash_select.cu",
         replaces="rust_mdbg_tpu/ops/pallas_kernels.py:103",
-        launches=0, max_abs_err=max_abs_err, mismatches=mismatches,
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, shape=[B, L], l=l, selected=n_sel)
+        launches=0, max_abs_err=max_abs_err,
+        mismatches=main_mismatches + sum(cases.values()),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        bound_share=bound_ms / ms, ops_bound_ms=t_ops, library_ms=None,
+        gbytes_per_s=nbytes / ms / 1e6, fill_ms=fill_ms,
+        fill_gbytes_per_s=fill_bytes / fill_ms / 1e6,
+        shape=[B, L], l=l, selected=n_sel, cases=cases)
 
 
 def read_records(prefix: str):
@@ -201,6 +253,104 @@ def main_path(tmp: str, Params, genome_mbp: float) -> dict:
         nthash_select_launches=launches)
 
 
+def construct_breakdown(tmp: str, Params) -> dict:
+    """Device time by kernel over one chunk of the main-path corpus:
+    construct_batches + finalize_chunk under torch.profiler, after a
+    warm-up run of the same chunk.  Planned, staged and run through the
+    driver's own steps (plan_chunks, host_feed, to_device, new_counter,
+    construct_chunk), outside assemble_device_chunked.
+
+    The busy share is given twice: over the profiled window, which tracing
+    the host's ~7,000 op launches stretches, so it reads low; and over the
+    median unprofiled wall time of the same chunk."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rust_mdbg_tpu_torch.core.chunked import (construct_chunk,
+                                                  host_feed, new_counter,
+                                                  plan_chunks, to_device)
+    from rust_mdbg_tpu_torch.io.fastx_native import NativeReader
+
+    reads = os.path.join(tmp, "main.fa")
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
+    plan = plan_chunks(reads, p)
+    rdr = NativeReader(reads, plan["chunk_reads"], plan["L"],
+                       mean_len_hint=plan["mean_len"])
+    try:
+        c = rdr.next_chunk()
+    finally:
+        rdr.close()
+    codes, lens, fill = c.codes, c.lengths, c.n
+    dev = torch.device("cuda")
+    host = host_feed(codes, lens, fill, plan)
+    fed_width = host[0].shape[1] * (4 if plan["packed"] else 1)
+    staged, lens_d = to_device(host, lens, dev)
+    counter = new_counter(p, plan, dev)
+
+    def chunk():
+        construct_chunk(p, plan, counter, staged, lens_d, fill)
+        counter.reset_chunk()
+
+    chunk()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    unprofiled_us = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        t = by_name.setdefault(e.name, [0.0, 0])
+        t[0] += b - a
+        t[1] += 1
+    busy = 0.0
+    end = float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    # the same device time by the torch op that launched it
+    ops = sorted(((a.key, a.self_device_time_total, a.count)
+                  for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU
+                  and a.self_device_time_total > 0), key=lambda r: -r[1])
+    B = plan["B"]
+    return dict(
+        reads=int(fill), batches=min(plan["n_batches"], (fill + B - 1) // B),
+        width=int(codes.shape[1]), fed_width=int(fed_width),
+        window_us=wall_us, unprofiled_us=unprofiled_us,
+        device_events=len(spans),
+        device_us=sum(t for t, _ in by_name.values()), busy_us=busy,
+        busy_share=busy / wall_us if spans else None,
+        busy_share_unprofiled=busy / unprofiled_us if spans else None,
+        nthash_select_us=sum(t for k, (t, _) in by_name.items()
+                             if "nthash_select" in k),
+        top=[dict(name=_short(k), us=t, calls=c) for k, (t, c) in top],
+        top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
+
+
+def _short(kernel: str) -> str:
+    for junk in ("void ", "at::native::", "(anonymous namespace)::",
+                 "at::cuda::detail::"):
+        kernel = kernel.replace(junk, "")
+    return kernel[:120]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome-mbp", type=float, default=20,
@@ -252,6 +402,8 @@ def main() -> int:
             print(f"main path: genome cut to {args.genome_mbp} Mbp "
                   "(20 Mbp is the bench shape)", flush=True)
         print(f"main path: {json.dumps(mp)}", flush=True)
+        bd = construct_breakdown(tmp, Params)
+        print(f"construct breakdown: {json.dumps(bd)}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

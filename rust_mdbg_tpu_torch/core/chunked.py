@@ -86,22 +86,13 @@ def check_ported(params: Params):
             f"--minabund > {MAX_CHUNK_SLOTS} (the whole-run finalize)")
 
 
-def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
-                            timer: PhaseTimer | None = None,
-                            stats: dict | None = None,
-                            chunk_reads: int = 0, device=None) -> dict:
-    """Bounded-memory chunked construction; writes prefix.gfa and the
-    prefix.<chunk>.sequences shards and returns the run's stats."""
+def plan_chunks(reads_path: str, params: Params, chunk_reads: int = 0) -> dict:
+    """The sizes a chunked run stages and allocates by: staging width L,
+    batch B, minimizer slots M, reads per chunk, batches per chunk, window
+    slots per read, whether the feed is 2-bit packed, and the half width
+    (0 = none) that chunks of short reads are fed at."""
     from ..ops.extract import capacity
-    from ..ops.kernels import build_all
-    from ..ops.pack import pack_codes_np
-    from ..ops.sort_count import (DeviceNodeCounter, construct_batches,
-                                  window_slot_capacity)
-
-    dev = resolve_device(device)
-    check_ported(params)
-    timer = timer or PhaseTimer()
-    stats = stats if stats is not None else {}
+    from ..ops.sort_count import window_slot_capacity
 
     mean_len, mx = fastx.read_first_n_reads(reads_path, 100)
     L = params.max_read_len or staging_width(mx)
@@ -126,17 +117,80 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
         # small forced chunks (tests): shrink the batch to fit the chunk
         B = min(B, chunk_reads)
         chunk_reads = (chunk_reads // B) * B
-    n_batches = chunk_reads // B
+    return dict(
+        L=L, B=B, M=M, chunk_reads=chunk_reads, n_batches=chunk_reads // B,
+        w_slot=window_slot_capacity(params, B, L, M), mean_len=mean_len,
+        # 2-bit+mask feed (ops/pack); L is 512-aligned
+        packed=L % 8 == 0,
+        # chunks whose longest read fits L/2 feed at half width (L carries
+        # 2x headroom over the sampled max read length)
+        L_half=L // 2 if (L // 2) % 512 == 0 and L // 2 >= 1024 else 0)
 
-    W_slot = window_slot_capacity(params, B, L, M)
-    counter = DeviceNodeCounter(
-        k=params.k, M=M, read_cap=chunk_reads, w_slot=W_slot,
+
+def host_feed(codes: np.ndarray, lens: np.ndarray, fill: int,
+              plan: dict) -> tuple:
+    """A parsed chunk's codes as the host arrays copied to the device: cut
+    to the half width where its reads fit, then 2-bit packed (packed,
+    mask) or left as (codes,)."""
+    from ..ops.pack import pack_codes_np
+
+    if codes.shape[1] != plan["L"]:
+        raise RuntimeError("read longer than staging width")
+    L_half = plan["L_half"]
+    if L_half and int(lens[:fill].max()) <= L_half:
+        codes = np.ascontiguousarray(codes[:, :L_half])
+    return pack_codes_np(codes) if plan["packed"] else (codes,)
+
+
+def to_device(host: tuple, lens: np.ndarray, dev: torch.device) -> tuple:
+    """host_feed's arrays and the read lengths copied to dev:
+    (staged tuple, lengths)."""
+    return (tuple(torch.from_numpy(a).to(dev) for a in host),
+            torch.from_numpy(lens).to(dev))
+
+
+def new_counter(params: Params, plan: dict, dev: torch.device):
+    """The device counter that every chunk of a run is reduced into."""
+    from ..ops.sort_count import DeviceNodeCounter
+
+    return DeviceNodeCounter(
+        k=params.k, M=plan["M"], read_cap=plan["chunk_reads"],
+        w_slot=plan["w_slot"],
         chunk_slots=min(params.min_kmer_abundance, MAX_CHUNK_SLOTS),
         device=dev)
-    packed = L % 8 == 0  # 2-bit+mask feed (ops/pack); L is 512-aligned
-    # chunks whose longest read fits L/2 feed at half width (L carries 2x
-    # headroom over the sampled max read length)
-    L_half = L // 2 if (L // 2) % 512 == 0 and L // 2 >= 1024 else 0
+
+
+def construct_chunk(params: Params, plan: dict, counter, staged: tuple,
+                    lens_d: torch.Tensor, fill: int) -> tuple:
+    """One staged chunk of `fill` reads through construct_batches and the
+    per-chunk reduction: (finalize_chunk's result, reads that overflowed
+    minimizer capacity)."""
+    from ..ops.sort_count import construct_batches
+
+    B = plan["B"]
+    _n, n_over = construct_batches(
+        params, staged if plan["packed"] else staged[0], lens_d,
+        counter.buffers, B=B, M=plan["M"], w_slot=plan["w_slot"],
+        batch_lo=0, batch_hi=min(plan["n_batches"], (fill + B - 1) // B))
+    res = counter.finalize_chunk()
+    return res, int(n_over)
+
+
+def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
+                            timer: PhaseTimer | None = None,
+                            stats: dict | None = None,
+                            chunk_reads: int = 0, device=None) -> dict:
+    """Bounded-memory chunked construction; writes prefix.gfa and the
+    prefix.<chunk>.sequences shards and returns the run's stats."""
+    from ..ops.kernels import build_all
+
+    dev = resolve_device(device)
+    check_ported(params)
+    timer = timer or PhaseTimer()
+    stats = stats if stats is not None else {}
+
+    plan = plan_chunks(reads_path, params, chunk_reads)
+    counter = new_counter(params, plan, dev)
 
     # the kernel build is this port's compile phase (nvcc, first use only)
     with timer.phase("compile"):
@@ -170,14 +224,8 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                 cur.wait_event(ready)
                 for t in (*staged, lens_d):
                     t.record_stream(cur)
-            if not packed:
-                staged = staged[0]
-            nbat = min(n_batches, (fill + B - 1) // B)
-            _n, n_over = construct_batches(
-                params, staged, lens_d, counter.buffers, B=B, M=M,
-                w_slot=W_slot, batch_lo=0, batch_hi=nbat)
-            res = counter.finalize_chunk()
-            n_over = int(n_over)
+            res, n_over = construct_chunk(params, plan, counter, staged,
+                                          lens_d, fill)
             del staged, lens_d
         if n_over:
             raise RuntimeError(
@@ -194,7 +242,12 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             cross = cross[order]
             occs = occs[order]
             with timer.phase("gather"):
-                vec, meta = counter.gather_crossing(occs)
+                vec, meta, n_clipped = counter.gather_crossing(occs)
+            if n_clipped:
+                raise RuntimeError(
+                    f"{n_clipped} crossing windows have an extent correction "
+                    "outside 16 bits (a homopolymer run of 64 KB at a "
+                    "window's last l-mer)")
             seqlen = meta[:, 0].astype(np.uint32)
             shift0 = (meta[:, 1] & 0x7FFFFFFF).astype(np.uint16)
             shift1 = (meta[:, 2] & 0x7FFFFFFF).astype(np.uint16)
@@ -227,7 +280,8 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
 
     from .fastx_feed import stream_chunks
 
-    it = iter(stream_chunks(reads_path, chunk_reads, B, L, mean_len))
+    it = iter(stream_chunks(reads_path, plan["chunk_reads"], plan["B"],
+                            plan["L"], plan["mean_len"]))
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def fetch_and_stage():
@@ -242,23 +296,17 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             codes, lens, blob, blob_off, fill = tup
             if fill == 0:
                 continue
-            if codes.shape[1] != L:
-                raise RuntimeError("read longer than staging width")
-            if L_half and int(lens[:fill].max()) <= L_half:
-                codes = np.ascontiguousarray(codes[:, :L_half])
-            host = pack_codes_np(codes) if packed else (codes,)
+            host = host_feed(codes, lens, fill, plan)
             del codes, tup
             h2d_bytes += sum(a.nbytes for a in host) + lens.nbytes
             ready = None
             if side is not None:
                 with torch.cuda.stream(side):
-                    staged = tuple(torch.from_numpy(a).to(dev) for a in host)
-                    lens_d = torch.from_numpy(lens).to(dev)
+                    staged, lens_d = to_device(host, lens, dev)
                     ready = torch.cuda.Event()
                     ready.record(side)
             else:
-                staged = tuple(torch.from_numpy(a).to(dev) for a in host)
-                lens_d = torch.from_numpy(lens).to(dev)
+                staged, lens_d = to_device(host, lens, dev)
             return staged, lens_d, ready, blob, blob_off, fill
 
     # Double-buffered feed: a staging thread packs and copies chunk N+1

@@ -84,12 +84,27 @@ def build_all(names=None) -> dict:
     return out
 
 
+#: C entry points of each library: name -> argument types (all return int,
+#: the launch's cudaGetLastError())
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ENTRY_POINTS = {
+    "nthash_select": {
+        "nthash_select_launch":
+            [_P] * 4 + [_I] * 3 + [ctypes.c_ulonglong, _P],
+    },
+}
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(_so_path(name))
+            for fn, argtypes in _ENTRY_POINTS[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -135,13 +150,10 @@ def nthash_select(codes: torch.Tensor, l: int, hash_bound: int,
     canon = torch.empty((B, L), dtype=torch.int64, device=codes.device)
     sel = torch.empty((B, L), dtype=torch.bool, device=codes.device)
     lib = _lib("nthash_select")
-    fn = lib.nthash_select_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_ulonglong, ctypes.c_void_p]
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = fn(codes.data_ptr(), lengths.data_ptr(), canon.data_ptr(),
-             sel.data_ptr(), B, L, l, hash_bound & ((1 << 64) - 1), stream)
+    err = lib.nthash_select_launch(
+        codes.data_ptr(), lengths.data_ptr(), canon.data_ptr(),
+        sel.data_ptr(), B, L, l, hash_bound & ((1 << 64) - 1), stream)
     if err != 0:
         raise RuntimeError(f"nthash_select launch failed: CUDA error {err}")
     nthash_select.launches += 1

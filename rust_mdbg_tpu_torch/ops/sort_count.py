@@ -162,7 +162,9 @@ def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None):
     shift1 | rev<<31, start, row); with b_mpe (raw inputs) a 6th column
     packs the exact-cut corrections (end_ext - end) << 16 |
     (d_last_e - d_last + 0x8000), both clipped to 16 bits as in the JAX
-    package."""
+    package.  Returns (canon_vec, meta, n_clipped): n_clipped (a device
+    scalar, 0 without b_mpe) counts the rows where either correction lies
+    outside [0, 0xFFFF], whose clipped value would cut the record wrong."""
     W = M - k + 1
     rows = occs // W
     wins = occs % W
@@ -183,11 +185,15 @@ def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None):
             [k - 2, k - 1], device=occs.device)[None, :]].long()
         # b_mpe holds extent_end - l, so ext_delta = end_ext - (pos + l)
         ext_delta = pe[:, 1] - pos_f[:, k - 1]
-        de1 = (pe[:, 1] - pe[:, 0]) - d_last
-        cols.append((torch.clamp(ext_delta, 0, 0xFFFF) << 16)
-                    | torch.clamp(de1 + 0x8000, 0, 0xFFFF))
+        de1 = (pe[:, 1] - pe[:, 0]) - d_last + 0x8000
+        ext = torch.clamp(ext_delta, 0, 0xFFFF)
+        d16 = torch.clamp(de1, 0, 0xFFFF)
+        n_clipped = ((ext != ext_delta) | (d16 != de1)).sum()
+        cols.append((ext << 16) | d16)
+    else:
+        n_clipped = torch.zeros((), dtype=torch.int64, device=occs.device)
     meta = torch.stack(cols, dim=-1) & u64.U32_MAX
-    return canon_vec, meta
+    return canon_vec, meta, n_clipped
 
 
 def buffers_from_numpy(bufs, device) -> tuple:
@@ -255,14 +261,16 @@ class DeviceNodeCounter:
         return self._chunk_occs[r, s].cpu().numpy().astype(np.uint32)
 
     def gather_crossing(self, occs: np.ndarray):
-        """(canonical vec u64 [n, k], meta u32 [n, 6]) for chunk-local
-        window occurrences, gathered on the device."""
+        """(canonical vec u64 [n, k], meta u32 [n, 6], n_clipped) for
+        chunk-local window occurrences, gathered on the device; n_clipped
+        counts rows whose extent corrections were clipped to 16 bits."""
         dev = self.buffers[0].device
         o = torch.from_numpy(np.asarray(occs, dtype=np.int64)).to(dev)
-        vec, meta = gather_window_meta(self.buffers[3], self.buffers[4], o,
-                                       k=self.k, M=self.M,
-                                       b_mpe=self.buffers[5])
-        return u64.to_numpy(vec), meta.cpu().numpy().astype(np.uint32)
+        vec, meta, n_clipped = gather_window_meta(
+            self.buffers[3], self.buffers[4], o, k=self.k, M=self.M,
+            b_mpe=self.buffers[5])
+        return (u64.to_numpy(vec), meta.cpu().numpy().astype(np.uint32),
+                int(n_clipped))
 
     def reset_chunk(self):
         """Refill the key planes with the empty sentinel (stale occ/mh/mp

@@ -80,6 +80,24 @@ def test_chunked_matches_jax(tmp_path, reads, chunk_reads):
     assert st["nb_windows"] == sj["nb_windows"]
 
 
+def test_clipped_extent_correction_raises(tmp_path):
+    """A homopolymer run of 70 kb inside a crossing window's last l-mer
+    puts its exact-cut correction outside 16 bits: the port's run raises,
+    naming the count, where the JAX package clips silently."""
+    rng = np.random.default_rng(21)
+
+    def rnd(n):
+        return "".join(np.array(list("ACGT"))[rng.integers(0, 4, n)])
+
+    path = tmp_path / "hp.fa"
+    path.write_text(f">r0\n{rnd(600)}{'A' * 70_000}{rnd(600)}\n"
+                    f">r1\n{rnd(1500)}\n")
+    p = Params(k=7, l=12, density=0.2, min_kmer_abundance=1)
+    with pytest.raises(RuntimeError, match=r"\d+ crossing windows .* 16 bits"):
+        assemble_device_chunked(str(path), p, str(tmp_path / "hp"),
+                                chunk_reads=2, device="cpu")
+
+
 def test_cli_runs_the_slice(tmp_path, reads):
     p = str(tmp_path / "cli")
     q = str(tmp_path / "fn")

@@ -16,7 +16,7 @@ from rust_mdbg_tpu.ops.pallas_kernels import nthash_select_pallas
 from rust_mdbg_tpu_torch.ops import u64
 from rust_mdbg_tpu_torch.ops.kernels import (nthash_select,
                                              nthash_select_plain)
-from rust_mdbg_tpu_torch.ops.nthash import (H_BY_CODE, ntc64,
+from rust_mdbg_tpu_torch.ops.nthash import (H_BY_CODE, RC_BY_CODE, ntc64,
                                             nthash_windows_np)
 from rust_mdbg_tpu_torch.utils.seq import encode_bases
 
@@ -134,19 +134,101 @@ def test_u64_compare_shift_rotate_match_numpy():
                                      64))[0]) == int(H_BY_CODE[0])
 
 
+def _rotl(x, r):
+    """u64 rotation by a runtime count, as the kernel writes it: r & 63,
+    with r == 0 apart (a shift by 64 is undefined in C)."""
+    r &= 63
+    return x if r == 0 else (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _rotr(x, r):
+    return _rotl(x, 64 - (r & 63))
+
+
+def rolling_model(codes, lengths, l, hb, P):
+    """numpy model of csrc/nthash_select.cu's work split: every run of P
+    positions starts at a multiple of P; its thread rolls its first window
+    in from an all-N window (the closed form in Horner form, l steps), then
+    rolls P-1 times.  Each step is one lookup of the combined (outgoing,
+    incoming) terms, built once per l for codes 0..3 and the zero code 4;
+    codes past L read 4 and every code above 4 is clamped to 4."""
+    B, L = codes.shape
+    runs = -(-L // P)
+    c = np.full((B, runs * P + l), 4, dtype=np.int64)
+    c[:, :L] = np.minimum(codes, 4)
+    h = np.append(H_BY_CODE[:4], np.uint64(0))
+    rc = np.append(RC_BY_CODE[:4], np.uint64(0))
+    tf = _rotl(h, l)[:, None] ^ h[None, :]            # [outgoing, incoming]
+    tr = _rotr(rc, 1)[:, None] ^ _rotl(rc, l - 1)[None, :]
+    one = np.uint64(1)
+    fh = np.zeros((B, runs), dtype=np.uint64)
+    rh = np.zeros((B, runs), dtype=np.uint64)
+    canon = np.zeros((B, runs, P), dtype=np.uint64)
+    start = np.arange(runs) * P
+    def step(fh, rh, co, ci):
+        return ((fh << one) | (fh >> np.uint64(63))) ^ tf[co, ci], \
+               ((rh >> one) | (rh << np.uint64(63))) ^ tr[co, ci]
+    for s in range(l):
+        fh, rh = step(fh, rh, 4, c[:, start + s])
+    for i in range(P):
+        if i:
+            fh, rh = step(fh, rh, c[:, start + i - 1], c[:, start + i - 1 + l])
+        canon[:, :, i] = np.minimum(fh, rh)
+    canon = canon.reshape(B, runs * P)[:, :L]
+    valid = np.arange(L)[None, :] + l <= lengths[:, None]
+    return canon, (canon <= np.uint64(hb)) & valid
+
+
+@pytest.mark.parametrize("P", [16, 32])
+@pytest.mark.parametrize("l", [1, 5, 14, 31, 32, 64])
+def test_rolling_model_matches_closed_form(l, P):
+    """The kernel's rolling work split gives the closed form's bits at
+    every position: against the plain version everywhere (windows past L
+    read the zero code) and against nthash_windows_np inside each length.
+    L = 291 is odd and leaves a run start at 288, inside the last l-1
+    columns for l >= 4; lengths include 0, 1, l-1, l and L; N and the
+    other code 5 are sprinkled in, also in the last columns."""
+    L = 291
+    codes, lengths = _batch(40 + l, 12, L, l)
+    lengths[4:6] = [1, L - 2]
+    codes[5, L - 2:] = 5
+    codes[6, ::7] = 5
+    hb = _bound(0.3)
+    canon, sel = rolling_model(codes, lengths, l, hb, P)
+    cp, sp = nthash_select_plain(torch.from_numpy(codes), l, hb,
+                                 torch.from_numpy(lengths))
+    assert np.array_equal(canon, u64.to_numpy(cp))
+    assert np.array_equal(sel, sp.numpy())
+    assert sel.any() and not sel.all()
+    for b in range(codes.shape[0]):
+        n = int(lengths[b])
+        fh, rh = nthash_windows_np(codes[b, :n], l)
+        assert np.array_equal(canon[b, : len(fh)], np.minimum(fh, rh))
+    # codes above 5 hash like N in the model (the plain version's table
+    # has no entry for them)
+    high = codes.copy()
+    high[high == 4] = 200
+    assert np.array_equal(rolling_model(high, lengths, l, hb, P)[0], canon)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """csrc/nthash_select.cu against the plain version (run on the card:
-    `python -m pytest tests/test_torch_nthash.py -m cuda`)."""
+    """csrc/nthash_select.cu against the plain version
+    (run on the card: `python -m pytest tests/test_torch_nthash.py -m
+    cuda`): a shape of whole 4,096-position tiles, odd L with edge rows,
+    an unaligned row slice, and l from 1 to 64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    l = 14
-    codes, lengths = _batch(3, 64, 4096, l)
-    c = torch.from_numpy(codes).cuda()
-    n = torch.from_numpy(lengths).cuda()
     hb = _bound(0.01)
-    before = nthash_select.launches
-    ck, sk = nthash_select(c, l, hb, n)
-    cp, sp = nthash_select_plain(c, l, hb, n)
-    assert nthash_select.launches == before + 1
-    assert torch.equal(ck, cp) and torch.equal(sk, sp)
+    for shape, l, skip in [((64, 4096), 14, 0), ((24, 4099), 1, 0),
+                           ((24, 4099), 13, 0), ((24, 8195), 32, 0),
+                           ((24, 4099), 64, 0), ((27, 4099), 14, 3),
+                           ((9, 37), 31, 1)]:
+        codes, lengths = _batch(3 + l, *shape, l)
+        c = torch.from_numpy(codes).cuda()[skip:]
+        n = torch.from_numpy(lengths).cuda()[skip:]
+        cp, sp = nthash_select_plain(c, l, hb, n)
+        before = nthash_select.launches
+        ck, sk = nthash_select(c, l, hb, n)
+        assert nthash_select.launches == before + 1
+        assert torch.equal(ck, cp) and torch.equal(sk, sp), (shape, l, skip)

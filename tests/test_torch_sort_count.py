@@ -130,11 +130,12 @@ def test_finalize_chunk_and_gather_match_jax(slots):
     vj, mj = jax.jit(functools.partial(_gather_window_meta, k=P.k, M=M))(
         jc.buffers[3], jc.buffers[4], jnp.asarray(qo.astype(np.uint32)),
         b_mpe=jc.buffers[5])
-    vt, mt = gather_window_meta(tbufs[3], tbufs[4], torch.from_numpy(qo),
-                                k=P.k, M=M, b_mpe=tbufs[5])
+    vt, mt, clipped = gather_window_meta(
+        tbufs[3], tbufs[4], torch.from_numpy(qo), k=P.k, M=M, b_mpe=tbufs[5])
     assert np.array_equal(np.asarray(vj), u64.to_numpy(vt))
     assert np.array_equal(np.asarray(mj), mt.numpy().astype(np.uint32))
     assert mt.shape[1] == 6
+    assert int(clipped) == 0
 
 
 def test_counter_reduces_and_resets():
@@ -150,8 +151,54 @@ def test_counter_reduces_and_resets():
     res = c.finalize_chunk()
     rows = np.nonzero(res["count"] >= 2)[0]
     occ = c.occ_at_chunk(rows, np.full(len(rows), 2))
-    vec, meta = c.gather_crossing(occ)
+    vec, meta, clipped = c.gather_crossing(occ)
     assert vec.shape == (len(rows), P.k) and meta.shape == (len(rows), 6)
+    assert clipped == 0
     assert (meta[:, 1] >> 31).all()
     c.reset_chunk()
     assert c.finalize_chunk()["n_unique"] == 0
+
+
+def _meta_buffers(case):
+    """Hand-built compact minimizer rows (k=3, M=8, l=9): 4 reads whose
+    minimizers sit 40 bases apart with extents 12 bases long, and the
+    window occurrences of every read's windows 0 and 5.  `case` pushes one
+    window's extent corrections out of 16 bits: ext_delta = extent end -
+    (last l-mer start + l) past 0xFFFF, or de1 = the last two extents'
+    end difference minus their start difference past +-0x8000."""
+    k, M, l = 3, 8, 9
+    rng = np.random.default_rng(6)
+    mh = rng.integers(0, 1 << 64, (4, M), dtype=np.uint64)
+    mp = (np.arange(M, dtype=np.int32) * 40 + 100)[None, :].repeat(4, 0)
+    mpe = mp + 12 - l                   # extent end - l (the biased plane)
+    if case == "ext_delta":
+        mpe[1, 7] = mp[1, 7] + 0x10000  # ext_delta = 0x10000
+    elif case == "de1_high":
+        mpe[2, 7] = mpe[2, 6] + 40 + 0x8000
+    elif case == "de1_low":
+        mpe[2, 6] = mpe[2, 7] - 40 + 0x8001
+    W = M - k + 1
+    occs = np.array([r * W + w for r in range(4) for w in (0, W - 1)],
+                    dtype=np.int64)
+    return k, M, mh, mp.astype(np.int32), mpe.astype(np.int32), occs
+
+
+@pytest.mark.parametrize("case,want", [("in_range", 0), ("ext_delta", 1),
+                                       ("de1_high", 1), ("de1_low", 1)])
+def test_gather_window_meta_counts_clipped_rows(case, want):
+    """The port counts the rows whose 16-bit extent corrections would clip;
+    its meta stays equal to the JAX gather's (which clips silently)."""
+    k, M, mh, mp, mpe, occs = _meta_buffers(case)
+    vt, mt, clipped = gather_window_meta(
+        u64.from_numpy(mh, "cpu"), torch.from_numpy(mp),
+        torch.from_numpy(occs), k=k, M=M, b_mpe=torch.from_numpy(mpe))
+    assert int(clipped) == want
+    vj, mj = jax.jit(functools.partial(_gather_window_meta, k=k, M=M))(
+        jnp.asarray(mh), jnp.asarray(mp),
+        jnp.asarray(occs.astype(np.uint32)), b_mpe=jnp.asarray(mpe))
+    assert np.array_equal(np.asarray(vj), u64.to_numpy(vt))
+    assert np.array_equal(np.asarray(mj), mt.numpy().astype(np.uint32))
+    _, _, none = gather_window_meta(
+        u64.from_numpy(mh, "cpu"), torch.from_numpy(mp),
+        torch.from_numpy(occs), k=k, M=M)
+    assert int(none) == 0
