@@ -15,12 +15,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    halos);
 3. slice parity: a small synthetic corpus through the port on "cuda" and on
    "cpu" — the .gfa must be byte-identical and the .sequences records equal;
+   then the same corpus as pre-HPC'd input (reads_already_hpc=True,
+   recompute mode) on "cuda", on "cpu", and on "cuda" with the device edge
+   join switched off: all three .gfa byte-identical, records equal, the
+   device join not bypassed, the kernel launched;
 4. the main path at users' scale: the bench.py corpus shape (20 Mbp genome,
    20% segmental duplications, 52x of 24,576 bp reads, 0.3% substitutions,
    ~1.04 Gbp) at the reference's HG002 parameters k=21, l=14, d=0.003,
-   minabund 2, through `assemble_device_chunked(device="cuda")`.  Kernel
-   launch counts are set to 0 just before and read just after; every
-   kernel of the path must have launched;
+   minabund 2, through `assemble_device_chunked(device="cuda")`, twice:
+   as raw reads (vector mode) and as pre-HPC'd reads (bench.py's own
+   configuration: recompute mode, the device key catalog and the device
+   edge join).  Kernel launch counts are set to 0 just before each leg and
+   read just after; every kernel of the path must have launched in each;
 5. the construct breakdown: torch.profiler over one chunk of that corpus
    (construct_batches + finalize_chunk, after a warm-up), device time by
    kernel name, and the device's busy time over the profiled window and
@@ -208,21 +214,81 @@ def slice_parity(tmp: str, Params) -> dict:
                 kernel_launches=launched, cpu_nodes=sc["nb_nodes"])
 
 
-def main_path(tmp: str, Params, genome_mbp: float) -> dict:
+def prehpc_parity(tmp: str, Params) -> dict:
+    """The parity corpus taken as pre-HPC'd input: recompute mode on the
+    card, on the CPU, and on the card with the host edge join."""
+    from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    reads = os.path.join(tmp, "parity.fa")
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2,
+               reads_already_hpc=True)
+    before = kernels.nthash_select.launches
+    sg = assemble_device_chunked(reads, p, os.path.join(tmp, "hg"),
+                                 device="cuda")
+    launched = kernels.nthash_select.launches - before
+    sc = assemble_device_chunked(reads, p, os.path.join(tmp, "hc"),
+                                 device="cpu")
+    os.environ["MDBG_CHUNK_DEVICE_JOIN"] = "0"
+    try:
+        sh = assemble_device_chunked(reads, p, os.path.join(tmp, "hh"),
+                                     device="cuda")
+    finally:
+        del os.environ["MDBG_CHUNK_DEVICE_JOIN"]
+    gfa = {x: open(os.path.join(tmp, f"{x}.gfa"), "rb").read()
+           for x in ("hg", "hc", "hh")}
+    if gfa["hg"] != gfa["hc"]:
+        raise SystemExit("pre-HPC parity: .gfa differs between cuda and cpu")
+    if gfa["hg"] != gfa["hh"]:
+        raise SystemExit("pre-HPC parity: .gfa differs between the device "
+                         "join and the host join")
+    rec = read_records(os.path.join(tmp, "hg"))
+    if rec != read_records(os.path.join(tmp, "hc")) \
+            or rec != read_records(os.path.join(tmp, "hh")):
+        raise SystemExit("pre-HPC parity: .sequences records differ")
+    if sg.get("edge_join") != "device" or sc.get("edge_join") != "device" \
+            or sh.get("edge_join") != "host":
+        raise SystemExit(
+            "pre-HPC parity: wrong join made the edges: cuda "
+            f"{sg.get('edge_join')}, cpu {sc.get('edge_join')}, switched "
+            f"off {sh.get('edge_join')}")
+    if launched <= 0:
+        raise SystemExit("pre-HPC parity: the cuda run launched no kernel")
+    if sg["nb_nodes"] <= 0 or sg["nb_edges"] <= 0 \
+            or sg["catalog_rows"] != sg["nb_nodes"]:
+        raise SystemExit(f"pre-HPC parity: bad graph {sg}")
+    return dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
+                reads=sg["nb_reads"], gfa_bytes=len(gfa["hg"]),
+                catalog_rows=sg["catalog_rows"], n_pot=sg["n_pot"],
+                join_device_ms=sg["join_device_ms"],
+                kernel_launches=launched)
+
+
+def write_main_corpus(tmp: str, genome_mbp: float) -> dict:
+    """main.fa, read by both main-path legs and the construct breakdown."""
+    from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
+
+    t0 = time.perf_counter()
+    syn = write_synthetic_reads(os.path.join(tmp, "main.fa"),
+                                genome_mbp=genome_mbp, coverage=52,
+                                read_len=24_576, error_rate=0.003, seed=0,
+                                repeat_frac=0.2)
+    syn["fasta_write_s"] = time.perf_counter() - t0
+    return syn
+
+
+def main_path(tmp: str, Params, syn: dict, genome_mbp: float,
+              already_hpc: bool) -> dict:
+    """One leg over main.fa: as raw reads, or as pre-HPC'd reads."""
     import torch
 
     from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
-    from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
     from rust_mdbg_tpu_torch.ops import kernels
 
     reads = os.path.join(tmp, "main.fa")
-    t0 = time.perf_counter()
-    syn = write_synthetic_reads(reads, genome_mbp=genome_mbp, coverage=52,
-                                read_len=24_576, error_rate=0.003, seed=0,
-                                repeat_frac=0.2)
-    t_write = time.perf_counter() - t0
-    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
-    prefix = os.path.join(tmp, "main")
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2,
+               reads_already_hpc=already_hpc)
+    prefix = os.path.join(tmp, "main_hpc" if already_hpc else "main")
     torch.cuda.reset_peak_memory_stats()
     kernels.nthash_select.launches = 0
     torch.cuda.synchronize()
@@ -232,7 +298,8 @@ def main_path(tmp: str, Params, genome_mbp: float) -> dict:
     wall = time.perf_counter() - t0
     launches = kernels.nthash_select.launches
     if launches <= 0:
-        raise SystemExit("main path: nthash_select never launched")
+        raise SystemExit(f"main path (already_hpc={already_hpc}): "
+                         "nthash_select never launched")
     n_s = n_l = 0
     with open(prefix + ".gfa") as f:
         for line in f:
@@ -241,16 +308,36 @@ def main_path(tmp: str, Params, genome_mbp: float) -> dict:
     n_rec = len(read_records(prefix))
     if not (n_s == st["nb_nodes"] == n_rec and n_l == st["nb_edges"]
             and n_s > 0 and n_l > 0):
-        raise SystemExit(f"main path: inconsistent outputs S={n_s} "
+        raise SystemExit(f"main path (already_hpc={already_hpc}): "
+                         f"inconsistent outputs S={n_s} "
                          f"L={n_l} records={n_rec} stats={st}")
-    return dict(
+    out = dict(
         genome_mbp=genome_mbp, read_gbp=syn["total_bases"] / 1e9,
         reads=st["nb_reads"], nodes=st["nb_nodes"], edges=st["nb_edges"],
         windows=st["nb_windows"], chunks=st["nb_chunks"],
         wall_s=wall, read_gbp_per_s=syn["total_bases"] / 1e9 / wall,
-        fasta_write_s=t_write, phases=st["phases"],
+        fasta_write_s=syn["fasta_write_s"], phases=st["phases"],
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         nthash_select_launches=launches)
+    if already_hpc:
+        if st.get("edge_join") != "device" \
+                or st["catalog_rows"] != st["nb_nodes"]:
+            raise SystemExit("pre-HPC main path: the device join did not "
+                             f"make the edges: {st.get('edge_join')}, "
+                             f"catalog rows {st.get('catalog_rows')}")
+        out.update(catalog_rows=st["catalog_rows"], n_pot=st["n_pot"],
+                   join_device_ms=st["join_device_ms"],
+                   join_dispatch_s=st["join_dispatch_s"],
+                   join_wall_s=st["join_wall_s"])
+    # device-to-host bytes of the crossing gathers and the join, counted
+    # from this run's shapes: vector mode fetches the k-vector (8k) and six
+    # meta columns per node; recompute mode five meta columns and k
+    # positions per node, and 9 B per POT candidate at the end
+    k = p.k
+    out["gather_d2h_bytes_per_node"] = (
+        20 + 4 * k + 9 * st["n_pot"] / st["nb_nodes"] if already_hpc
+        else 8 * k + 24)
+    return out
 
 
 def construct_breakdown(tmp: str, Params) -> dict:
@@ -396,18 +483,27 @@ def main() -> int:
         par = slice_parity(tmp, Params)
         par["seconds"] = time.perf_counter() - t0
         print(f"slice parity: {json.dumps(par)}", flush=True)
+        t0 = time.perf_counter()
+        hpar = prehpc_parity(tmp, Params)
+        hpar["seconds"] = time.perf_counter() - t0
+        print(f"pre-HPC slice parity: {json.dumps(hpar)}", flush=True)
 
-        mp = main_path(tmp, Params, args.genome_mbp)
+        syn = write_main_corpus(tmp, args.genome_mbp)
         if args.genome_mbp != 20:
             print(f"main path: genome cut to {args.genome_mbp} Mbp "
                   "(20 Mbp is the bench shape)", flush=True)
+        mp = main_path(tmp, Params, syn, args.genome_mbp, already_hpc=False)
         print(f"main path: {json.dumps(mp)}", flush=True)
+        hp = main_path(tmp, Params, syn, args.genome_mbp, already_hpc=True)
+        print(f"pre-HPC main path: {json.dumps(hp)}", flush=True)
         bd = construct_breakdown(tmp, Params)
         print(f"construct breakdown: {json.dumps(bd)}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    rows[0]["launches"] = mp["nthash_select_launches"]
+    rows[0]["launches_by_leg"] = dict(raw=mp["nthash_select_launches"],
+                                      prehpc=hp["nthash_select_launches"])
+    rows[0]["launches"] = sum(rows[0]["launches_by_leg"].values())
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,7 @@ from .params import Params, autodetect_k_l_d, default_prefix
 
 #: flags of the JAX package's CLI whose paths are later slices
 _NOT_PORTED = {
-    "bf": "--bf", "skiphpc": "--skiphpc (pre-HPC input)",
-    "syncmers": "--syncmers", "lmer_counts": "--lmer-counts",
+    "bf": "--bf", "syncmers": "--syncmers", "lmer_counts": "--lmer-counts",
     "uhs": "--uhs", "lcp": "--lcp", "error_correct": "--error-correct",
     "restart_from_postcor": "--restart-from-postcor",
     "reference": "--reference", "read_stats": "--read-stats",
@@ -42,6 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--minabund", type=int, default=2)
     p.add_argument("--presimp", type=float, default=0.01)
     p.add_argument("--no-basespace", action="store_true")
+    p.add_argument("--skiphpc", action="store_true",
+                   help="reads are already homopolymer-compressed")
     p.add_argument("--batch-reads", type=int, default=512)
     p.add_argument("--max-read-len", type=int, default=0)
     p.add_argument("--chunk-reads", type=int, default=0,
@@ -79,6 +80,7 @@ def params_from_args(args) -> tuple[Params, str]:
     params = Params(
         k=k, l=l, density=density, min_kmer_abundance=args.minabund,
         presimp=args.presimp, no_basespace=bool(args.no_basespace),
+        reads_already_hpc=bool(args.skiphpc),
         batch_reads=args.batch_reads, max_read_len=args.max_read_len,
         chunk_reads=args.chunk_reads)
     prefix = args.prefix if args.prefix is not None else default_prefix(params)

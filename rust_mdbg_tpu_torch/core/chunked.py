@@ -1,8 +1,9 @@
 """Chunked construction: device reduction per chunk, native C++ global merge.
 
-Counterpart of the JAX package's `core/chunked.assemble_device_chunked` in
-vector mode (raw reads, density scheme, --minabund <= 16, no --bf).  The
-input streams in fixed-size chunks:
+Counterpart of the JAX package's `core/chunked.assemble_device_chunked`
+(density scheme, --minabund <= 16, no --bf), in vector mode for raw reads
+and in recompute mode for pre-HPC'd ones.  The input streams in fixed-size
+chunks:
 
   per chunk (device):   unpack -> HPC -> ntHash + density select (the
                         nthash_select kernel) -> compaction -> window keys
@@ -13,6 +14,19 @@ input streams in fixed-size chunks:
                         appearance (rust-mdbg src/main.rs:680-707)
   device gather:        vec + metadata of exactly the crossing occurrences
   host write:           the chunk's .sequences shard, then the GFA at the end
+
+Recompute mode (core/device_out.minimizer_recompute_ok: reads already
+homopolymer-compressed): the gather computes each node's four
+(k-1)-overlap fingerprints on the device, 65 B/node instead of the
+8k B/node vectors, and the .sequences writer re-derives the minimizer
+values from the record's own bytes at device-given positions.  The
+fingerprints stay on the device in a bounded DeviceKeyCatalog and the GFA
+edge join runs there (ops/edge_join), the host receiving only the candidate
+list; when the catalog overflows, or a key group exceeds the join's
+G_SLOTS, the run falls back to the host join on fetched fingerprints.
+Two environment switches, read once per run, keep the JAX package's names:
+MDBG_CHUNK_DEVICE_JOIN=0 takes the host join from the start, and
+MDBG_CHUNK_CAT_CAP bounds the catalog's rows (default 2^22).
 
 Node ids follow crossing-occurrence order, so the .gfa is byte-identical
 to the JAX package's on the same input and Params.
@@ -29,9 +43,11 @@ import torch
 
 from ..io import fastx
 from ..io.sequences import remove_stale, write_records_native
+from ..ops import u64
 from ..params import Params, staging_width
 from ..utils.timing import PhaseTimer
-from .graph import build_gfa
+from .device_out import minimizer_recompute_ok
+from .graph import IncrementalGFA, build_gfa, build_gfa_precomputed
 from .nodetable import NodeTable
 
 #: occurrence-slot ceiling (the JAX package's MAX_CHUNK_SLOTS): slots =
@@ -65,13 +81,8 @@ def resolve_device(device=None) -> torch.device:
 def check_ported(params: Params):
     """Raise NotPortedError for Params that select a path outside this
     slice."""
-    from ..ops.sort_count import counter_flags
-
-    if not counter_flags(params)["with_ext"]:
-        # the extent plane is dropped only for pre-HPC input (recompute
-        # mode) and reference-cut spans
-        raise NotPortedError("pre-HPC input (--skiphpc) or reference-cut "
-                             "spans")
+    if getattr(params, "seq_ref_cuts", False):
+        raise NotPortedError("reference-cut spans")
     if params.use_bf:
         raise NotPortedError("--bf")
     if params.use_syncmers or params.uhs or params.lcp \
@@ -151,13 +162,13 @@ def to_device(host: tuple, lens: np.ndarray, dev: torch.device) -> tuple:
 
 def new_counter(params: Params, plan: dict, dev: torch.device):
     """The device counter that every chunk of a run is reduced into."""
-    from ..ops.sort_count import DeviceNodeCounter
+    from ..ops.sort_count import DeviceNodeCounter, counter_flags
 
     return DeviceNodeCounter(
         k=params.k, M=plan["M"], read_cap=plan["chunk_reads"],
         w_slot=plan["w_slot"],
         chunk_slots=min(params.min_kmer_abundance, MAX_CHUNK_SLOTS),
-        device=dev)
+        device=dev, with_ext=counter_flags(params)["with_ext"])
 
 
 def construct_chunk(params: Params, plan: dict, counter, staged: tuple,
@@ -176,12 +187,28 @@ def construct_chunk(params: Params, plan: dict, counter, staged: tuple,
     return res, int(n_over)
 
 
+def _host_join_gfa(prefix, params, nodes, gk: np.ndarray, gf: np.ndarray):
+    """Host km_index join from id-ordered fingerprints (the path without a
+    catalog, after a spill, and the G_SLOTS-overflow fallback)."""
+    Fs, Fp, FsR, FpR = gk[:, 0:2], gk[:, 2:4], gk[:, 4:6], gk[:, 6:8]
+    key_suf = np.where((gf & 1).astype(bool)[:, None], Fs, FsR)
+    key_pre = np.where((gf & 2).astype(bool)[:, None], Fp, FpR)
+    return build_gfa_precomputed(
+        f"{prefix}.gfa", nodes, (Fs, Fp, FsR, FpR, key_suf, key_pre),
+        presimp=params.presimp)
+
+
 def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                             timer: PhaseTimer | None = None,
                             stats: dict | None = None,
                             chunk_reads: int = 0, device=None) -> dict:
     """Bounded-memory chunked construction; writes prefix.gfa and the
-    prefix.<chunk>.sequences shards and returns the run's stats."""
+    prefix.<chunk>.sequences shards and returns the run's stats.  In
+    recompute mode the stats also say which join made the edges
+    (`edge_join`: "device" or "host") and, for the device join, its
+    `catalog_rows`, `n_pot`, `join_device_ms`, `join_dispatch_s` and
+    `join_wall_s` (ops/edge_join.PotJoin says what each covers)."""
+    from ..ops.edge_join import DeviceKeyCatalog
     from ..ops.kernels import build_all
 
     dev = resolve_device(device)
@@ -209,8 +236,29 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     nb_windows = 0
     h2d_bytes = 0
     chunk_i = 0
+    rec_ok = minimizer_recompute_ok(params)
     vec_ids: list[np.ndarray] = []
-    vec_arrs: list[np.ndarray] = []   # [n, k] u64 vectors
+    vec_arrs: list[np.ndarray] = []   # [n, k] u64 vectors (vector mode)
+    gk_arrs: list[np.ndarray] = []    # [n, 8] u64 fingerprints (recompute)
+    gf_arrs: list[np.ndarray] = []    # [n] u8 orientation flags
+
+    # device edge join: the crossing keys accumulate in a bounded device
+    # catalog instead of being fetched per chunk; at GFA time the id-order
+    # permutation goes up and only the POT list comes down
+    catalog = None
+    if rec_ok and os.environ.get("MDBG_CHUNK_DEVICE_JOIN", "1") != "0":
+        catalog = DeviceKeyCatalog(
+            int(os.environ.get("MDBG_CHUNK_CAT_CAP", 1 << 22)))
+
+    def spill_catalog():
+        """Move the device catalog to the host arrays (append order kept);
+        the run goes on with the host join."""
+        nonlocal catalog
+        gk_sp, gf_sp = catalog.spill()
+        if len(gk_sp):
+            gk_arrs.append(gk_sp)
+            gf_arrs.append(gf_sp)
+        catalog = None
 
     def flush_chunk(staged, lens_d, ready, blob, blob_off, fill):
         """One chunk through: device reduce -> native merge -> crossing
@@ -242,7 +290,21 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             cross = cross[order]
             occs = occs[order]
             with timer.phase("gather"):
-                vec, meta, n_clipped = counter.gather_crossing(occs)
+                vec = mpos = gk = gflag = None
+                n_clipped = 0
+                if catalog is not None:
+                    gk_d, gf_d, meta, mpos = \
+                        counter.gather_crossing_keys_dev(occs)
+                    if catalog.fits(len(occs)):
+                        catalog.append(gk_d, gf_d)
+                    else:  # bounded catalog full: spill, go host from here
+                        spill_catalog()
+                        gk = u64.to_numpy(gk_d)
+                        gflag = gf_d.cpu().numpy()
+                elif rec_ok:
+                    gk, gflag, meta, mpos = counter.gather_crossing_keys(occs)
+                else:
+                    vec, meta, n_clipped = counter.gather_crossing(occs)
             if n_clipped:
                 raise RuntimeError(
                     f"{n_clipped} crossing windows have an extent correction "
@@ -252,18 +314,27 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             shift0 = (meta[:, 1] & 0x7FFFFFFF).astype(np.uint16)
             shift1 = (meta[:, 2] & 0x7FFFFFFF).astype(np.uint16)
             rev = (meta[:, 2] >> 31).astype(np.uint8)
-            # exact-cut corrections (extpack column, raw inputs)
-            ext_delta = (meta[:, 5] >> 16).astype(np.int64)
-            de1 = (meta[:, 5] & 0xFFFF).astype(np.int64) - 0x8000
-            r = rev.astype(bool)
-            seq_shift0 = np.where(r, shift0 + de1, shift0).astype(np.uint16)
-            seq_shift1 = np.where(r, shift1, shift1 + de1).astype(np.uint16)
+            seq_shift0, seq_shift1 = shift0, shift1
+            ext_delta = 0
+            if meta.shape[1] > 5:
+                # exact-cut corrections (extpack column, raw inputs)
+                ext_delta = (meta[:, 5] >> 16).astype(np.int64)
+                de1 = (meta[:, 5] & 0xFFFF).astype(np.int64) - 0x8000
+                r = rev.astype(bool)
+                seq_shift0 = np.where(r, shift0 + de1, shift0) \
+                    .astype(np.uint16)
+                seq_shift1 = np.where(r, shift1, shift1 + de1) \
+                    .astype(np.uint16)
             with timer.phase("meta"):
                 index_c = table.set_meta_batch(res["key_lo"][cross],
                                                res["key_hi"][cross],
                                                seqlen, shift0, shift1)
                 vec_ids.append(index_c)
-                vec_arrs.append(vec)
+                if not rec_ok:
+                    vec_arrs.append(vec)
+                elif gk is not None:  # host mode (no catalog, or spilled)
+                    gk_arrs.append(gk)
+                    gf_arrs.append(gflag)
             if not params.no_basespace:
                 with timer.phase("sequences"):
                     start = meta[:, 3].astype(np.int64)
@@ -273,7 +344,9 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                     write_records_native(
                         f"{prefix}.{chunk_i}.sequences", params.k, params.l,
                         index_c, vec, blob, abs_start, abs_end, rev,
-                        seq_shift0, seq_shift1, hash_bound=0, mpos=None)
+                        seq_shift0, seq_shift1,
+                        hash_bound=params.hash_bound if rec_ok else 0,
+                        mpos=mpos)
         with timer.phase("reset"):
             counter.reset_chunk()
         chunk_i += 1
@@ -359,11 +432,46 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
         nodes = table.dump(params.min_kmer_abundance)
         order = (np.argsort(np.concatenate(vec_ids), kind="stable")
                  if vec_ids else np.zeros(0, dtype=np.int64))
-        varr = (np.concatenate(vec_arrs) if vec_arrs
-                else np.zeros((0, params.k), dtype=np.uint64))[order]
-        if len(varr) != len(nodes["index"]):
+        if len(order) != len(nodes["index"]):
             raise RuntimeError("crossing set diverged from passing set")
-        g = build_gfa(f"{prefix}.gfa", nodes, varr, presimp=params.presimp)
+        if catalog is not None and catalog.n > 0:
+            # device join: permute the catalog into id order on the device,
+            # feed the S lines while the POT list comes down, then let the
+            # native writer apply presimp and the symmetric drop
+            stats["catalog_rows"] = catalog.n
+            stats["h2d_bytes"] = h2d_bytes + 8 * len(order)
+            pot, gk_p, gf_p = catalog.join(order)
+            gfa = IncrementalGFA(cap_hint=len(nodes["index"]))
+            try:
+                gfa.add_chunk(nodes["index"], nodes["abundance"],
+                              nodes["seqlen"], nodes["shift0"],
+                              nodes["shift1"], None)
+                arrays = pot.resolve()
+                if arrays is None:  # a key group exceeded G_SLOTS
+                    g = _host_join_gfa(prefix, params, nodes,
+                                       u64.to_numpy(gk_p),
+                                       gf_p.cpu().numpy())
+                else:
+                    g = gfa.finish_pot(f"{prefix}.gfa", params.presimp,
+                                       *arrays)
+            finally:
+                gfa.abort()
+            stats.update(edge_join="host" if arrays is None else "device",
+                         n_pot=pot.n_pot, join_device_ms=pot.device_ms,
+                         join_dispatch_s=pot.dispatch_s,
+                         join_wall_s=pot.wall_s)
+        elif rec_ok:
+            gk = (np.concatenate(gk_arrs) if gk_arrs
+                  else np.zeros((0, 8), dtype=np.uint64))[order]
+            gf = (np.concatenate(gf_arrs) if gf_arrs
+                  else np.zeros(0, dtype=np.uint8))[order]
+            g = _host_join_gfa(prefix, params, nodes, gk, gf)
+            stats["edge_join"] = "host"
+        else:
+            varr = (np.concatenate(vec_arrs) if vec_arrs
+                    else np.zeros((0, params.k), dtype=np.uint64))[order]
+            g = build_gfa(f"{prefix}.gfa", nodes, varr,
+                          presimp=params.presimp)
     stats.update(g)
     stats["phases"] = timer.report()
     stats["phase_stats"] = timer.report_stats()

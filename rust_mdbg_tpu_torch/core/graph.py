@@ -1,8 +1,9 @@
-"""mdBG edge construction, presimp filtering and GFA emission (vector mode).
+"""mdBG edge construction, presimp filtering and GFA emission.
 
-A copy of the parts of the JAX package's core/graph.py that `build_gfa`
-needs; the incremental and precomputed-key writers stay behind with the
-recompute path, which is not ported yet.
+A copy of the parts of the JAX package's core/graph.py that core/chunked
+needs: `build_gfa` from k-vectors (vector mode), and for recompute
+mode `build_gfa_precomputed` from overlap fingerprints (the host join) and
+`IncrementalGFA.finish_pot` from a device-joined candidate list.
 
 Parity target: rust-mdbg src/main.rs:1006-1121.
 
@@ -55,6 +56,109 @@ def _overlap_keys(varr: np.ndarray):
     key_pre = np.where(_le_rev(pre)[:, None], Fp, FpR)
     return Fs, Fp, FsR, FpR, key_suf, key_pre
 
+
+def build_gfa_precomputed(path, nodes: dict, keys6: tuple,
+                          presimp: float) -> dict:
+    """Native GFA write from pre-computed overlap keys (Fs, Fp, FsR, FpR,
+    key_suf, key_pre), rows in the order of `nodes`."""
+    return _build_gfa_native(
+        path, nodes["index"], nodes["abundance"], nodes["seqlen"],
+        nodes["shift0"], nodes["shift1"], None, presimp, keys6=keys6,
+    )
+
+
+class IncrementalGFA:
+    """Chunk-fed native GFA writer (gfa_begin/add_chunk/finish).
+
+    Chunks must arrive in node-id order — S lines and km_index insertion
+    order follow feed order (main.rs:1023-1032).  `finish` enumerates edges
+    with the host km_index join; `finish_pot` takes them from a device
+    join.  One that is neither finished nor aborted leaks its native
+    state."""
+
+    def __init__(self, cap_hint: int = 0):
+        import ctypes
+
+        from ..native import load
+
+        self._lib = load("gfawriter")
+        self._lib.gfa_begin.restype = ctypes.c_void_p
+        self._lib.gfa_begin.argtypes = [ctypes.c_int64]
+        self._lib.gfa_add_chunk.restype = None
+        self._lib.gfa_add_chunk.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 11)
+        self._lib.gfa_finish.restype = ctypes.c_int64
+        self._lib.gfa_finish.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_double, ctypes.c_void_p]
+        self._lib.gfa_finish_pot.restype = ctypes.c_int64
+        self._lib.gfa_finish_pot.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_double,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p]
+        self._lib.gfa_abort.restype = None
+        self._lib.gfa_abort.argtypes = [ctypes.c_void_p]
+        self._h = self._lib.gfa_begin(int(cap_hint))
+        self._ctypes = ctypes
+        self.n_nodes = 0
+
+    def add_chunk(self, index, abundance, seqlen, shift0, shift1, keys6):
+        """keys6=None: keys-free feeding — the edge join runs on the device
+        (ops/edge_join.py) and arrives via finish_pot; no km_index here."""
+        arrs = [
+            np.ascontiguousarray(index, dtype=np.uint32),
+            np.ascontiguousarray(abundance, dtype=np.uint32),
+            np.ascontiguousarray(seqlen, dtype=np.uint32),
+            np.ascontiguousarray(shift0, dtype=np.uint16),
+            np.ascontiguousarray(shift1, dtype=np.uint16),
+        ]
+        n = len(arrs[0])
+        if keys6 is not None:
+            arrs += [np.ascontiguousarray(a, dtype=np.uint64) for a in keys6]
+        if any(len(a) != n for a in arrs):
+            raise ValueError("add_chunk arrays differ in length")
+        ptrs = [a.ctypes.data_as(self._ctypes.c_void_p) for a in arrs]
+        if keys6 is None:
+            ptrs += [None] * 6
+        self._lib.gfa_add_chunk(self._h, n, *ptrs)
+        self.n_nodes += n
+
+    def _done(self, nb: int, removed, what: str, path) -> dict:
+        self._h = None
+        if nb < 0:
+            raise RuntimeError(f"{what} failed for {path}")
+        return dict(nb_nodes=self.n_nodes, nb_edges=int(nb),
+                    presimp_removed=int(removed.value))
+
+    def finish(self, path, presimp: float) -> dict:
+        removed = self._ctypes.c_int64(0)
+        nb = self._lib.gfa_finish(self._h, str(path).encode(), float(presimp),
+                                  self._ctypes.byref(removed))
+        return self._done(nb, removed, "gfa_finish", path)
+
+    def finish_pot(self, path, presimp: float, pot_i, pot_j, pot_c) -> dict:
+        """Finish from a device-joined POT candidate list (ops/edge_join):
+        applies presimp + the symmetric-drop rule and writes the file."""
+        pot_i = np.ascontiguousarray(pot_i, dtype=np.uint32)
+        pot_j = np.ascontiguousarray(pot_j, dtype=np.uint32)
+        pot_c = np.ascontiguousarray(pot_c, dtype=np.uint32)
+        if not len(pot_i) == len(pot_j) == len(pot_c):
+            raise ValueError("POT arrays differ in length")
+        if len(pot_i) and max(int(pot_i.max()), int(pot_j.max())) \
+                >= self.n_nodes:
+            raise ValueError("POT entry names a node that was never fed")
+        removed = self._ctypes.c_int64(0)
+        cp = self._ctypes.c_void_p
+        nb = self._lib.gfa_finish_pot(
+            self._h, str(path).encode(), float(presimp),
+            pot_i.ctypes.data_as(cp), pot_j.ctypes.data_as(cp),
+            pot_c.ctypes.data_as(cp), len(pot_i),
+            self._ctypes.byref(removed))
+        return self._done(nb, removed, "gfa_finish_pot", path)
+
+    def abort(self):
+        if self._h is not None:
+            self._lib.gfa_abort(self._h)
+            self._h = None
 
 
 def _build_gfa_native(path, index, abundance, seqlen, shift0, shift1, varr,

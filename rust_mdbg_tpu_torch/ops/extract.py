@@ -1,16 +1,19 @@
 """Fused extraction, count path: base codes -> window keys + minimizer rows.
 
 Counterpart of the `count_output=True` path of the JAX package's
-`ops/extract._device_extract` for raw (not pre-HPC'd) reads under the
-density scheme:
+`ops/extract._device_extract` under the density scheme:
 
   HPC compaction -> extent-end plane -> ntHash + density selection (the
   nthash_select kernel) -> compaction of the selected positions into
   [B, M] rows -> O(1) 128-bit window keys from prefix sums
 
+Reads that are already homopolymer-compressed skip the first two steps:
+the codes are hashed as they are and a minimizer's position is its column.
+
 Outputs match the JAX function key for key: `keys` [B, W, 2] (invalid
-windows hold the all-ones sentinel), `mh` [B, M] (u64 bits), `mp` and `mpe`
-[B, M] int32, `nw` [B] int32 and the per-read `overflow` flag.
+windows hold the all-ones sentinel), `mh` [B, M] (u64 bits), `mp` [B, M]
+int32, `mpe` [B, M] int32 (raw reads only), `nw` [B] int32 and the per-read
+`overflow` flag.
 """
 
 from __future__ import annotations
@@ -121,20 +124,26 @@ def window_keys_poly(mh: torch.Tensor, k: int, M: int) -> torch.Tensor:
 
 
 def extract_count(codes: torch.Tensor, lengths: torch.Tensor, *, l: int,
-                  k: int, hash_bound: int, M: int) -> dict:
-    """Count-path extraction of one [B, L] batch of raw reads."""
+                  k: int, hash_bound: int, M: int,
+                  already_hpc: bool = False) -> dict:
+    """Count-path extraction of one [B, L] batch of reads.  With
+    already_hpc the hashing space is the sequence space: no HPC pass, and no
+    extent plane `mpe` in the result (an l-mer's extent ends at pos + l)."""
     B, L = codes.shape
     dev = codes.device
-    idx = torch.arange(L, dtype=torch.int32, device=dev)
 
-    hpc_codes, pos_map, hpc_len = hpc(codes, lengths)
-    # full-HPC-extent end map: pme[b, j] = raw start of HPC base j+l (the
-    # extent end of the l-mer at HPC index j), or the raw read length when
-    # the l-mer runs to the read end
-    in_range = (idx[None, :] + l) < hpc_len[:, None]
-    shifted = torch.zeros_like(pos_map)
-    shifted[:, : max(0, L - l)] = pos_map[:, l:]
-    pme = torch.where(in_range, shifted, lengths[:, None])
+    if already_hpc:
+        hpc_codes, hpc_len = codes, lengths
+    else:
+        idx = torch.arange(L, dtype=torch.int32, device=dev)
+        hpc_codes, pos_map, hpc_len = hpc(codes, lengths)
+        # full-HPC-extent end map: pme[b, j] = raw start of HPC base j+l
+        # (the extent end of the l-mer at HPC index j), or the raw read
+        # length when the l-mer runs to the read end
+        in_range = (idx[None, :] + l) < hpc_len[:, None]
+        shifted = torch.zeros_like(pos_map)
+        shifted[:, : max(0, L - l)] = pos_map[:, l:]
+        pme = torch.where(in_range, shifted, lengths[:, None])
 
     canon, sel = nthash_select(hpc_codes, l, hash_bound, hpc_len)
 
@@ -142,8 +151,12 @@ def extract_count(codes: torch.Tensor, lengths: torch.Tensor, *, l: int,
     perm_m = torch.clamp(first, max=L - 1).long()
     in_m = torch.arange(M, device=dev)[None, :] < n_min[:, None]
     mh = torch.where(in_m, torch.gather(canon, 1, perm_m), 0)
-    mp = torch.where(in_m, torch.gather(pos_map, 1, perm_m), 0)
-    mpe = torch.where(in_m, torch.gather(pme, 1, perm_m), 0)
+    out = {}
+    if already_hpc:
+        mp = torch.where(in_m, perm_m.to(torch.int32), 0)
+    else:
+        mp = torch.where(in_m, torch.gather(pos_map, 1, perm_m), 0)
+        out["mpe"] = torch.where(in_m, torch.gather(pme, 1, perm_m), 0)
 
     # invalid windows get the all-ones sentinel key so the counter drops them
     keys = window_keys_poly(mh, k, M)
@@ -152,4 +165,5 @@ def extract_count(codes: torch.Tensor, lengths: torch.Tensor, *, l: int,
     valid_w = (n_min[:, None] > k) & (widx[None, :] < n_min[:, None] - k + 1)
     keys = torch.where(valid_w[..., None], keys, u64.SENTINEL)
     nw = torch.where(n_min > k, n_min - k + 1, 0).to(torch.int32)
-    return dict(keys=keys, mh=mh, mp=mp, mpe=mpe, nw=nw, overflow=overflow)
+    out.update(keys=keys, mh=mh, mp=mp, nw=nw, overflow=overflow)
+    return out

@@ -4,11 +4,14 @@ Counterpart of the chunked half of the JAX package's `ops/sort_count.py`.
 Every batch's VALID window keys (128-bit canonical fingerprints from
 ops/extract) are compacted into fixed per-batch slots of the counter
 buffers, beside their window coordinate occ = read_row * W + w and the
-compacted per-read minimizer rows mh/mp/mpe.  Per chunk, one reduction
-sorts the keys with occ as the last sort key, finds segment heads and
-returns the unique keys with their counts in first-occurrence order; the
-window metadata of a node's crossing occurrence is rebuilt later by
-gathering k-slices of mh/mp.
+compacted per-read minimizer rows mh/mp (and mpe for raw reads).  Per
+chunk, one reduction sorts the keys with occ as the last sort key, finds
+segment heads and returns the unique keys with their counts in
+first-occurrence order; the window metadata of a node's crossing occurrence
+is rebuilt later by gathering k-slices of mh/mp.  For pre-HPC'd input
+(recompute mode) the gather returns the node's four (k-1)-overlap
+fingerprints and its record-relative minimizer positions instead of the
+k-vector.
 
 Buffers (a tuple of tensors on the counter's device; u64 and u32 values
 are held as int64 bit patterns, see ops/u64.py):
@@ -17,7 +20,8 @@ are held as int64 bit patterns, see ops/u64.py):
   b_occ       int64 [read_cap * W_slot]  occ, 0xFFFFFFFF = empty
   b_mh        int64 [read_cap, M]        minimizer hashes
   b_mp        int32 [read_cap, M]        raw minimizer positions
-  b_mpe       int32 [read_cap, M]        extent ends minus l
+  b_mpe       int32 [read_cap, M]        extent ends minus l (raw reads
+                                         only: counter_flags' with_ext)
 
 Buffers are updated in place (the JAX package donates and replaces them).
 """
@@ -31,7 +35,7 @@ import torch
 
 from . import u64
 from .extract import extract_count
-from .kminmer import canonicalize
+from .kminmer import canonicalize, fingerprint128, le_rev
 from .pack import unpack_codes
 
 
@@ -75,7 +79,11 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
     unpacked per batch.  Returns device scalars (n_windows, n_overflow);
     n_overflow counts minimizer-capacity reads plus window-slot batches.
     """
-    b_lo, b_hi, b_occ, b_mh, b_mp, b_mpe = buffers
+    b_lo, b_hi, b_occ, b_mh, b_mp = buffers[:5]
+    with_ext = counter_flags(params)["with_ext"]
+    if len(buffers) != 5 + with_ext:
+        raise ValueError(
+            f"{len(buffers)} buffer planes for with_ext={with_ext}")
     dev = b_lo.device
     W = M - params.k + 1
     S = B * w_slot
@@ -89,7 +97,8 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
         else:
             codes = all_codes[r]
         out = extract_count(codes, all_lengths[r], l=params.l, k=params.k,
-                            hash_bound=params.hash_bound, M=M)
+                            hash_bound=params.hash_bound, M=M,
+                            already_hpc=params.reads_already_hpc)
         row0 = read_base + i * B
         # batch-slot compaction: valid windows are a per-read prefix, so
         # output position p maps to (row, w) via the rank of p in the
@@ -112,8 +121,9 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
             valid, ((row0 + row) * W + w) & u64.U32_MAX, u64.U32_MAX)
         b_mh[row0 : row0 + B] = out["mh"]
         b_mp[row0 : row0 + B] = out["mp"]
-        # extent plane biased by -l (see gather_window_meta)
-        b_mpe[row0 : row0 + B] = out["mpe"] - params.l
+        if with_ext:
+            # extent plane biased by -l (see gather_window_meta)
+            buffers[5][row0 : row0 + B] = out["mpe"] - params.l
         n_over += out["overflow"].sum() + (nv > S)
         n_win += torch.clamp(nv, max=S)
     return n_win, n_over
@@ -154,7 +164,8 @@ def finalize_chunk(b_lo, b_hi, b_occ, *, slots: int):
             occs[order])
 
 
-def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None):
+def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None,
+                       with_record_pos: bool = False):
     """Reconstruct (canonical vec, meta) for chunk-local window occurrences
     by gathering k-slices of the compact minimizer rows.
 
@@ -164,7 +175,12 @@ def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None):
     (d_last_e - d_last + 0x8000), both clipped to 16 bits as in the JAX
     package.  Returns (canon_vec, meta, n_clipped): n_clipped (a device
     scalar, 0 without b_mpe) counts the rows where either correction lies
-    outside [0, 0xFFFF], whose clipped value would cut the record wrong."""
+    outside [0, 0xFFFF], whose clipped value would cut the record wrong.
+
+    with_record_pos=True appends mpos int64 [n, k]: each minimizer's
+    position within the node's stored record sequence, flipped into stored
+    orientation for reversed crossings (the .sequences writer re-derives the
+    minimizer values by hashing the k l-mers there)."""
     W = M - k + 1
     rows = occs // W
     wins = occs % W
@@ -193,7 +209,36 @@ def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None):
     else:
         n_clipped = torch.zeros((), dtype=torch.int64, device=occs.device)
     meta = torch.stack(cols, dim=-1) & u64.U32_MAX
-    return canon_vec, meta, n_clipped
+    if not with_record_pos:
+        return canon_vec, meta, n_clipped
+    # the record is span + l long, so its last l-mer starts at span =
+    # rel[k-1]; a reversed record stores revcomp(seq), where the l-mer at
+    # forward offset r starts at span - r
+    rel = pos_f - pos_f[:, :1]
+    mpos = torch.where(rev[:, None], rel[:, -1:] - rel.flip(1), rel)
+    return canon_vec, meta, n_clipped, mpos
+
+
+def overlap_keys_device(canon_vec):
+    """GFA (k-1)-overlap fingerprints of canonical k-vectors [n, k]: gk
+    int64 [n, 8] holds (Fs, Fp, FsR, FpR) as (lo, hi) pairs — suffix,
+    prefix, reversed suffix, reversed prefix, the twins of
+    core/graph._overlap_keys — and gflag uint8 [n] has bit 0 set where the
+    suffix is its own canonical orientation and bit 1 for the prefix.  With
+    these the edge join never needs the vectors."""
+    suf = canon_vec[:, 1:]
+    pre = canon_vec[:, :-1]
+    gk = torch.cat([fingerprint128(suf), fingerprint128(pre),
+                    fingerprint128(suf.flip(1)), fingerprint128(pre.flip(1))],
+                   dim=-1)
+    gflag = le_rev(suf).to(torch.uint8) | (le_rev(pre).to(torch.uint8) << 1)
+    return gk, gflag
+
+
+def _u32_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor of u32 values -> numpy uint32, 4 B per value over the
+    device-to-host copy."""
+    return t.to(torch.int32).cpu().numpy().view(np.uint32)
 
 
 def buffers_from_numpy(bufs, device) -> tuple:
@@ -221,11 +266,11 @@ def buffers_to_numpy(bufs) -> tuple:
 
 class DeviceNodeCounter:
     """Counter buffers for one chunk of reads, plus the per-chunk reduction
-    and crossing gathers the chunked driver calls (raw inputs: the extent
-    plane is always carried)."""
+    and crossing gathers that core/chunked calls.  with_ext (raw inputs)
+    carries the extent plane; without it the buffers are five planes."""
 
     def __init__(self, k: int, M: int, read_cap: int, w_slot: int,
-                 chunk_slots: int, device):
+                 chunk_slots: int, device, with_ext: bool = True):
         self.k = k
         self.M = M
         self.chunk_slots = max(1, chunk_slots)
@@ -237,8 +282,10 @@ class DeviceNodeCounter:
             torch.full((n,), u64.U32_MAX, dtype=torch.int64, device=dev),
             torch.zeros((read_cap, M), dtype=torch.int64, device=dev),
             torch.zeros((read_cap, M), dtype=torch.int32, device=dev),
-            torch.zeros((read_cap, M), dtype=torch.int32, device=dev),
         )
+        if with_ext:
+            self.buffers += (
+                torch.zeros((read_cap, M), dtype=torch.int32, device=dev),)
         self._chunk_occs = None  # [n_unique, slots] of the last chunk
 
     def finalize_chunk(self) -> dict:
@@ -260,17 +307,38 @@ class DeviceNodeCounter:
         s = torch.from_numpy(np.asarray(sel, dtype=np.int64) - 1).to(dev)
         return self._chunk_occs[r, s].cpu().numpy().astype(np.uint32)
 
+    def _occs(self, occs: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(occs, dtype=np.int64)).to(
+            self.buffers[0].device)
+
     def gather_crossing(self, occs: np.ndarray):
-        """(canonical vec u64 [n, k], meta u32 [n, 6], n_clipped) for
+        """(canonical vec u64 [n, k], meta u32 [n, 5 or 6], n_clipped) for
         chunk-local window occurrences, gathered on the device; n_clipped
-        counts rows whose extent corrections were clipped to 16 bits."""
-        dev = self.buffers[0].device
-        o = torch.from_numpy(np.asarray(occs, dtype=np.int64)).to(dev)
+        counts rows whose extent corrections were clipped to 16 bits (0
+        without the extent plane, where meta has five columns)."""
         vec, meta, n_clipped = gather_window_meta(
-            self.buffers[3], self.buffers[4], o, k=self.k, M=self.M,
-            b_mpe=self.buffers[5])
-        return (u64.to_numpy(vec), meta.cpu().numpy().astype(np.uint32),
-                int(n_clipped))
+            self.buffers[3], self.buffers[4], self._occs(occs), k=self.k,
+            M=self.M, b_mpe=self.buffers[5] if len(self.buffers) > 5 else None)
+        return u64.to_numpy(vec), _u32_to_numpy(meta), int(n_clipped)
+
+    def gather_crossing_keys_dev(self, occs: np.ndarray):
+        """Recompute-mode gather (five-plane counters): (gk int64 [n, 8],
+        gflag uint8 [n], meta u32 [n, 5], mpos u32 [n, k]).  The overlap
+        fingerprints stay on the device, for a DeviceKeyCatalog append;
+        meta and mpos come to the host, where the .sequences writer needs
+        them now."""
+        vec, meta, _, mpos = gather_window_meta(
+            self.buffers[3], self.buffers[4], self._occs(occs), k=self.k,
+            M=self.M, with_record_pos=True)
+        gk, gflag = overlap_keys_device(vec)
+        return gk, gflag, _u32_to_numpy(meta), _u32_to_numpy(mpos)
+
+    def gather_crossing_keys(self, occs: np.ndarray):
+        """gather_crossing_keys_dev with gk (u64 [n, 8]) and gflag fetched
+        to the host as well: 65 B/node of fingerprints instead of the
+        8k B/node vectors, for the host edge join."""
+        gk, gflag, meta, mpos = self.gather_crossing_keys_dev(occs)
+        return u64.to_numpy(gk), gflag.cpu().numpy(), meta, mpos
 
     def reset_chunk(self):
         """Refill the key planes with the empty sentinel (stale occ/mh/mp

@@ -3,12 +3,14 @@ JAX package's `assemble_device_chunked`, plus the port's import and device
 guards.
 
 The corpus is generated here (synthetic raw reads with homopolymers, N runs
-and ragged lengths), never read from an external example.  The .gfa must
-be byte-identical and the .sequences records equal.
+and ragged lengths), never read from an external example; the pre-HPC
+corpus is the same reads with every homopolymer run collapsed.  The .gfa
+must be byte-identical and the .sequences records equal.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -58,6 +60,18 @@ def reads(tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module")
+def hpc_reads(reads, tmp_path_factory):
+    """The corpus above with homopolymer runs collapsed: input for
+    reads_already_hpc=True (recompute mode)."""
+    path = str(tmp_path_factory.mktemp("hpc") / "hpc.fa")
+    with open(reads) as f, open(path, "w") as out:
+        for line in f:
+            out.write(line if line.startswith(">")
+                      else re.sub(r"(.)\1+", r"\1", line))
+    return path
+
+
 def _records(prefix):
     return sorted(json.dumps(r, sort_keys=True, default=str)
                   for r in iter_sequences(prefix))
@@ -78,6 +92,85 @@ def test_chunked_matches_jax(tmp_path, reads, chunk_reads):
     assert st["nb_edges"] == sj["nb_edges"] > 100
     assert st["nb_chunks"] == sj["nb_chunks"] > 1
     assert st["nb_windows"] == sj["nb_windows"]
+
+
+#: how the recompute-mode run makes its edges: the device join, the host
+#: join from the start, or a catalog too small for the run (424 nodes),
+#: which spills to the host at the first or at a later chunk
+JOINS = {"device": {}, "host": {"MDBG_CHUNK_DEVICE_JOIN": "0"},
+         "spill_first": {"MDBG_CHUNK_CAT_CAP": "10"},
+         "spill_later": {"MDBG_CHUNK_CAT_CAP": "300"}}
+
+
+@pytest.fixture(scope="module")
+def jax_hpc_runs(hpc_reads, tmp_path_factory):
+    """The JAX package's pre-HPC runs (device join), one per chunk size."""
+    out = {}
+    for chunk_reads in (64, 256):
+        pj = str(tmp_path_factory.mktemp(f"jax{chunk_reads}") / "jax")
+        sj = jax_chunked(hpc_reads,
+                         JaxParams(engine="device", reads_already_hpc=True,
+                                   **KW), pj, chunk_reads=chunk_reads)
+        out[chunk_reads] = (pj, sj)
+    return out
+
+
+@pytest.mark.parametrize("join", list(JOINS))
+@pytest.mark.parametrize("chunk_reads", [64, 256])
+def test_prehpc_chunked_matches_jax(tmp_path, monkeypatch, hpc_reads,
+                                    jax_hpc_runs, chunk_reads, join):
+    pj, sj = jax_hpc_runs[chunk_reads]
+    for name, value in JOINS[join].items():
+        monkeypatch.setenv(name, value)
+    pt = str(tmp_path / "torch")
+    st = assemble_device_chunked(hpc_reads,
+                                 Params(reads_already_hpc=True, **KW), pt,
+                                 chunk_reads=chunk_reads, device="cpu")
+    assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa", "rb").read()
+    assert _records(pj) == _records(pt)
+    assert st["nb_nodes"] == sj["nb_nodes"] > 100
+    assert st["nb_edges"] == sj["nb_edges"] > 100
+    assert st["nb_chunks"] == sj["nb_chunks"] > 1
+    assert st["nb_windows"] == sj["nb_windows"]
+    assert st["edge_join"] == ("device" if join == "device" else "host")
+    if join == "device":
+        assert st["catalog_rows"] == st["nb_nodes"]
+        assert st["n_pot"] >= st["nb_edges"]
+
+
+def test_prehpc_join_overflow_falls_back_to_host(tmp_path, monkeypatch,
+                                                 hpc_reads, jax_hpc_runs):
+    """A key group over G_SLOTS (forced here by shrinking the limit to one
+    candidate) makes the device join report overflow; the run then joins
+    on the host from the permuted catalog and writes the same file."""
+    from rust_mdbg_tpu_torch.ops import edge_join
+
+    monkeypatch.setattr(edge_join, "G_SLOTS", 1)
+    pj, sj = jax_hpc_runs[256]
+    pt = str(tmp_path / "torch")
+    st = assemble_device_chunked(hpc_reads,
+                                 Params(reads_already_hpc=True, **KW), pt,
+                                 chunk_reads=256, device="cpu")
+    assert st["edge_join"] == "host" and st["n_pot"] is None
+    assert st["catalog_rows"] == st["nb_nodes"] == sj["nb_nodes"]
+    assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa", "rb").read()
+
+
+def test_recompute_mode_equals_vector_mode_on_hpc_input(tmp_path, hpc_reads):
+    """On reads with no homopolymer run left, HPC is the identity and an
+    extent ends at pos + l, so the raw path (vector mode: k-vectors
+    fetched, edges joined on the host from them) and the pre-HPC path
+    (recompute mode) must write the same files."""
+    a = assemble_device_chunked(hpc_reads, Params(**KW), str(tmp_path / "a"),
+                                chunk_reads=256, device="cpu")
+    b = assemble_device_chunked(hpc_reads,
+                                Params(reads_already_hpc=True, **KW),
+                                str(tmp_path / "b"), chunk_reads=256,
+                                device="cpu")
+    assert "edge_join" not in a and b["edge_join"] == "device"
+    assert (tmp_path / "a.gfa").read_bytes() == (tmp_path / "b.gfa") \
+        .read_bytes()
+    assert _records(str(tmp_path / "a")) == _records(str(tmp_path / "b"))
 
 
 def test_clipped_extent_correction_raises(tmp_path):
@@ -109,8 +202,23 @@ def test_cli_runs_the_slice(tmp_path, reads):
     assert open(p + ".gfa", "rb").read() == open(q + ".gfa", "rb").read()
 
 
-@pytest.mark.parametrize("flag", [["--bf"], ["--skiphpc"], ["--mesh", "4"],
-                                  ["--error-correct"]])
+def test_cli_skiphpc(tmp_path, hpc_reads):
+    p = str(tmp_path / "cli")
+    q = str(tmp_path / "fn")
+    assert cli_main([hpc_reads, "-k", "7", "-l", "12", "-d", "0.01",
+                     "--minabund", "2", "--prefix", p, "--device", "cpu",
+                     "--chunk-reads", "128", "--skiphpc"]) == 0
+    st = assemble_device_chunked(hpc_reads,
+                                 Params(reads_already_hpc=True, **KW), q,
+                                 chunk_reads=128, device="cpu")
+    assert st["edge_join"] == "device"
+    assert open(p + ".gfa", "rb").read() == open(q + ".gfa", "rb").read()
+    assert _records(p) == _records(q)
+
+
+@pytest.mark.parametrize("flag", [["--bf"], ["--mesh", "4"],
+                                  ["--error-correct"], ["--reference"],
+                                  ["--syncmers"]])
 def test_cli_rejects_unported_paths(tmp_path, reads, flag):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli_main([reads, "-k", "7", "--device", "cpu",
@@ -118,8 +226,9 @@ def test_cli_rejects_unported_paths(tmp_path, reads, flag):
 
 
 def test_unported_params_raise(tmp_path, reads):
-    for kw in (dict(reads_already_hpc=True), dict(use_bf=True),
-               dict(min_kmer_abundance=17)):
+    for kw in (dict(use_bf=True), dict(min_kmer_abundance=17),
+               dict(reference=True),
+               dict(reads_already_hpc=True, use_syncmers=True)):
         with pytest.raises(NotPortedError, match="ROADMAP.md"):
             assemble_device_chunked(reads, Params(**{**KW, **kw}),
                                     str(tmp_path / "x"), device="cpu")

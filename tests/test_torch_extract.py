@@ -97,6 +97,47 @@ def test_count_path_matches_jax(L, density, mmax):
         assert not ot["overflow"][3:].any()
 
 
+def _hpc_reads(seed, B, L):
+    """Reads with no two equal neighbours (already homopolymer-compressed),
+    N and 'other' bases and ragged lengths."""
+    rng = np.random.default_rng(seed)
+    step = rng.integers(1, 4, (B, L)).astype(np.uint8)
+    step[:, 0] = rng.integers(0, 4, B)
+    codes = (np.cumsum(step, axis=1) % 4).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.004] = 4
+    codes[rng.random((B, L)) < 0.002] = 5
+    lengths = rng.integers(L // 3, L + 1, B).astype(np.int32)
+    lengths[:3] = [0, 5, L]
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 5
+    return codes, lengths
+
+
+@pytest.mark.parametrize("L,density,mmax", [CASES[0], CASES[1], CASES[3],
+                                            CASES[4]])
+def test_count_path_already_hpc_matches_jax(L, density, mmax):
+    """Pre-HPC'd input: the codes are hashed as they are, positions are
+    columns and neither side makes an extent plane."""
+    p = Params(k=7, l=10, density=density, max_minimizers_per_read=mmax,
+               reads_already_hpc=True)
+    M = capacity(p, L)
+    codes, lengths = _hpc_reads(L + int(density * 100), 16, L)
+    fn = jax.jit(functools.partial(
+        _device_extract, l=p.l, k=p.k, hash_bound=p.hash_bound, M=M,
+        already_hpc=True, count_output=True))
+    oj = fn(jnp.asarray(codes), jnp.asarray(lengths))
+    ot = extract_count(torch.from_numpy(codes), torch.from_numpy(lengths),
+                       l=p.l, k=p.k, hash_bound=p.hash_bound, M=M,
+                       already_hpc=True)
+    assert sorted(oj) == sorted(ot) and "mpe" not in ot
+    assert np.array_equal(np.asarray(oj["keys"]), u64.to_numpy(ot["keys"]))
+    assert np.array_equal(np.asarray(oj["mh"]), u64.to_numpy(ot["mh"]))
+    for name in ("mp", "nw", "overflow"):
+        assert np.array_equal(np.asarray(oj[name]), ot[name].numpy()), name
+        assert oj[name].dtype == ot[name].numpy().dtype, name
+    assert int(ot["nw"].sum()) > 0
+    assert bool(ot["overflow"].any()) == bool(mmax)
+
+
 def test_kminmer_ops_match_jax():
     """canonicalize / le_rev / fingerprint128 against the JAX functions on
     vectors with top-bit values, palindromes and near-palindromes; and the

@@ -13,18 +13,22 @@ import jax.numpy as jnp
 
 from rust_mdbg_tpu.ops.sort_count import (
     DeviceNodeCounter as JaxCounter, _finalize_chunk, _gather_window_meta,
-    make_fused_construct)
+    _overlap_keys_device, make_fused_construct)
 from rust_mdbg_tpu_torch.ops import u64
 from rust_mdbg_tpu_torch.ops.extract import capacity
 from rust_mdbg_tpu_torch.ops.pack import pack_codes_np
 from rust_mdbg_tpu_torch.ops.sort_count import (
     DeviceNodeCounter, buffers_from_numpy, buffers_to_numpy,
     construct_batches, finalize_chunk, gather_window_meta,
-    window_slot_capacity)
+    overlap_keys_device, window_slot_capacity)
 from rust_mdbg_tpu_torch.params import Params
 
 B, L, NB = 16, 1024, 4
 P = Params(k=5, l=9, density=0.03, min_kmer_abundance=2)
+#: the same reads taken as already homopolymer-compressed: five buffer
+#: planes, recompute-mode gathers
+P_HPC = Params(k=5, l=9, density=0.03, min_kmer_abundance=2,
+               reads_already_hpc=True)
 
 
 def _chunk(seed):
@@ -47,12 +51,13 @@ def _sizes():
     return M, window_slot_capacity(P, B, L, M)
 
 
-def _run_both(seeds_and_batches):
+def _run_both(seeds_and_batches, P=P):
     """Run chunks through both constructs (with a reset between chunks) and
     return (jax counter, torch buffers, per-chunk [(jax nw/over, torch)])."""
     M, ws = _sizes()
     jc = JaxCounter(k=P.k, M=M, read_cap=B * NB, node_cap=1 << 20,
-                    minab=2, w_slot=ws, chunk_slots=2, with_ext=True)
+                    minab=2, w_slot=ws, chunk_slots=2,
+                    with_ext=not P.reads_already_hpc)
     fn = make_fused_construct(P, B, L, M, NB, packed=True, w_slot=ws,
                               bf=False)
     tbufs = buffers_from_numpy(tuple(np.asarray(b) for b in jc.buffers),
@@ -88,6 +93,80 @@ def test_construct_matches_jax(batches):
     assert len(jb) == len(tb) == 6
     for a, b in zip(jb, tb):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("batches", [[(0, NB)], [(1, NB), (2, 2)]])
+def test_five_plane_construct_matches_jax(batches):
+    """Pre-HPC'd input: no extent plane on either side."""
+    jc, tbufs, counts = _run_both(batches, P_HPC)
+    for (jn, tn) in counts:
+        assert jn == tn and tn[0] > 0
+    jb = tuple(np.asarray(b) for b in jc.buffers)
+    tb = buffers_to_numpy(tbufs)
+    assert len(jb) == len(tb) == 5
+    for a, b in zip(jb, tb):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_construct_rejects_mismatched_planes():
+    _, tbufs, _ = _run_both([(0, 1)], P_HPC)
+    codes, lengths = _chunk(0)
+    M, ws = _sizes()
+    with pytest.raises(ValueError, match="5 buffer planes"):
+        construct_batches(P, torch.from_numpy(codes),
+                          torch.from_numpy(lengths), tbufs, B=B, M=M,
+                          w_slot=ws, batch_lo=0, batch_hi=1)
+
+
+def test_record_pos_gather_and_overlap_keys_match_jax():
+    """The recompute-mode gather: meta (five columns), record-relative
+    minimizer positions flipped for reversed crossings, and the overlap
+    fingerprints of the gathered vectors."""
+    jc, tbufs, _ = _run_both([(1, NB), (4, 3)], P_HPC)
+    M, _ = _sizes()
+    lo, hi, cnt, occs = finalize_chunk(*tbufs[:3], slots=2)
+    sel = np.where(cnt.numpy() >= 2, 1, 0)
+    qo = occs.numpy()[np.arange(lo.shape[0]), sel]
+
+    def jax_gather(b_mh, b_mp, o):
+        vec, meta, mpos = _gather_window_meta(
+            b_mh, b_mp, o, k=P.k, M=M, with_record_pos=True, pos_u16=True)
+        return (vec, meta, mpos) + _overlap_keys_device(vec)
+
+    vj, mj, pj, gkj, gfj = jax.jit(jax_gather)(
+        jc.buffers[3], jc.buffers[4], jnp.asarray(qo.astype(np.uint32)))
+    vt, mt, clipped, pt = gather_window_meta(
+        tbufs[3], tbufs[4], torch.from_numpy(qo), k=P.k, M=M,
+        with_record_pos=True)
+    gkt, gft = overlap_keys_device(vt)
+    assert np.array_equal(np.asarray(vj), u64.to_numpy(vt))
+    assert np.array_equal(np.asarray(mj), mt.numpy().astype(np.uint32))
+    assert mt.shape[1] == 5 and int(clipped) == 0
+    assert np.array_equal(np.asarray(pj).astype(np.int64), pt.numpy())
+    assert np.array_equal(np.asarray(gkj), u64.to_numpy(gkt))
+    assert np.array_equal(np.asarray(gfj), gft.numpy())
+    rev = (mt[:, 2] >> 31).bool()
+    assert rev.any() and (~rev).any()
+    # positions ascend along a forward record and start at 0
+    assert (pt[~rev][:, 0] == 0).all() and (pt.diff(dim=1) > 0).all()
+
+    # the counter class returns the same through both of its gathers
+    c = DeviceNodeCounter(k=P.k, M=M, read_cap=B * NB, w_slot=_sizes()[1],
+                          chunk_slots=2, device="cpu", with_ext=False)
+    c.buffers = tbufs
+    gk_d, gf_d, meta, mpos = c.gather_crossing_keys_dev(qo)
+    assert torch.equal(gk_d, gkt) and torch.equal(gf_d, gft)
+    assert meta.dtype == np.uint32 and mpos.dtype == np.uint32
+    assert np.array_equal(meta, np.asarray(mj))
+    assert np.array_equal(mpos, np.asarray(pj).astype(np.uint32))
+    gk, gf, meta2, mpos2 = c.gather_crossing_keys(qo)
+    assert gk.dtype == np.uint64 and gf.dtype == np.uint8
+    assert np.array_equal(gk, np.asarray(gkj))
+    assert np.array_equal(gf, np.asarray(gfj))
+    assert np.array_equal(meta2, meta) and np.array_equal(mpos2, mpos)
+    vec, meta5, n_clipped = c.gather_crossing(qo)
+    assert meta5.shape[1] == 5 and n_clipped == 0
+    assert np.array_equal(vec, np.asarray(vj))
 
 
 def test_buffers_round_trip():
