@@ -30,7 +30,22 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. the construct breakdown: torch.profiler over one chunk of that corpus
    (construct_batches + finalize_chunk, after a warm-up), device time by
    kernel name, and the device's busy time over the profiled window and
-   over the same chunk's unprofiled wall time.
+   over the same chunk's unprofiled wall time;
+6. whole-run parity: the parity corpus through `assemble_device_table` on
+   "cuda" and on "cpu" as raw reads, as pre-HPC'd reads (in batches of 16
+   reads, so that enough chunks flow for phase 1 to fire) and as pre-HPC'd
+   reads with --bf: .gfa bytes and .sequences records equal between the
+   devices, and the whole-run graph's (LN, KC) node multiset and edge
+   count equal to the chunked leg's on the same input (for --bf a chunked
+   run whose Bloom filter is the host table's);
+7. the whole-run main path on the same main.fa at [512, 24576] batches
+   (max_read_len = 24,576, bench.py's staging width), three legs:
+   pre-HPC'd reads at minabund 2 through `assemble_device_table` (bench.py's
+   configuration: phased emission, the device join), raw reads at minabund
+   17 through `core/pipeline.assemble` (the route a user reaches), and the
+   first leg again with --bf;
+8. the finalize breakdown: torch.profiler over one `finalize_compact` of
+   the whole pre-HPC'd main corpus, device time by torch op.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -49,6 +64,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+
+#: where the port's entry points run; a rehearsal of this script's control
+#: flow on a machine without a card may set it to "cpu" from outside, the
+#: script itself never does
+DEVICE = "cuda"
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the non-tensor
 #: 32-bit rate used for integer lane operations
@@ -431,6 +451,233 @@ def construct_breakdown(tmp: str, Params) -> dict:
         top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
 
 
+def gfa_signature(prefix: str):
+    """(LN, KC) multiset and edge count: the id-free graph comparison."""
+    nodes, edges = [], 0
+    with open(prefix + ".gfa") as f:
+        for line in f:
+            if line.startswith("S\t"):
+                v = line.split("\t")
+                nodes.append((v[3], v[4].strip()))
+            elif line.startswith("L\t"):
+                edges += 1
+    return sorted(nodes), edges
+
+
+def whole_run_parity(tmp: str, Params) -> dict:
+    """The parity corpus through the whole-run path on the card and on the
+    CPU, and against the chunked driver's graph on the same input:
+    slice_parity's pg and prehpc_parity's hg, still on disk, and for --bf a
+    chunked run made here, whose Bloom filter is the host table's — so the
+    device screen is held against the host one at the same bit count."""
+    from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
+    from rust_mdbg_tpu_torch.core.pipeline import assemble_device_table
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    reads = os.path.join(tmp, "parity.fa")
+    kw = dict(k=21, l=14, density=0.003, min_kmer_abundance=2,
+              batch_reads=16)
+    legs = {"raw": (dict(), "pg"),
+            "prehpc": (dict(reads_already_hpc=True), "hg"),
+            "prehpc_bf": (dict(reads_already_hpc=True, use_bf=True,
+                               bloom_log2_bits=28), "hg_bf")}
+    out = {}
+    for leg, (extra, chunked) in legs.items():
+        p = Params(**kw, **extra)
+        if p.use_bf:
+            assemble_device_chunked(reads, p.replace(batch_reads=512),
+                                    os.path.join(tmp, chunked), device=DEVICE)
+        before = kernels.nthash_select.launches
+        sg = assemble_device_table(reads, p, os.path.join(tmp, f"w{leg}_g"),
+                                   device=DEVICE)
+        launched = kernels.nthash_select.launches - before
+        sc = assemble_device_table(reads, p, os.path.join(tmp, f"w{leg}_c"),
+                                   device="cpu")
+        g = open(os.path.join(tmp, f"w{leg}_g.gfa"), "rb").read()
+        if g != open(os.path.join(tmp, f"w{leg}_c.gfa"), "rb").read():
+            raise SystemExit(f"whole-run parity ({leg}): .gfa differs "
+                             "between cuda and cpu")
+        if read_records(os.path.join(tmp, f"w{leg}_g")) != \
+                read_records(os.path.join(tmp, f"w{leg}_c")):
+            raise SystemExit(f"whole-run parity ({leg}): .sequences differ "
+                             "between cuda and cpu")
+        if launched <= 0:
+            raise SystemExit(f"whole-run parity ({leg}): no kernel launch")
+        if sg["nb_nodes"] <= 0 or sg["nb_edges"] <= 0 or sg["n_over"]:
+            raise SystemExit(f"whole-run parity ({leg}): bad graph {sg}")
+        fired = sg["phase1_nodes"] > 0
+        if fired != ("prehpc" in leg) or fired != (sc["phase1_nodes"] > 0):
+            raise SystemExit(f"whole-run parity ({leg}): phase 1 "
+                             f"{sg['phase1_nodes']} / {sc['phase1_nodes']}")
+        if "prehpc" in leg and sg.get("edge_join") != "device":
+            raise SystemExit(f"whole-run parity ({leg}): edges came from "
+                             f"the {sg.get('edge_join')} join")
+        if gfa_signature(os.path.join(tmp, f"w{leg}_g")) \
+                != gfa_signature(os.path.join(tmp, chunked)):
+            raise SystemExit(f"whole-run parity ({leg}): node multiset or "
+                             "edge count differs from the chunked leg's")
+        out[leg] = dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
+                        chunks=sg["nb_chunks"], gfa_bytes=len(g),
+                        phase1_nodes=sg["phase1_nodes"],
+                        kernel_launches=launched,
+                        same_graph_as_chunked=True)
+    return out
+
+
+def whole_run_main(tmp: str, Params, syn: dict, leg: str, chunked=None):
+    """One whole-run leg over main.fa at [512, 24576] batches.  `chunked`
+    is the chunked leg of the same input (its stats and prefix), whose
+    graph the result must equal."""
+    import torch
+
+    from rust_mdbg_tpu_torch.core import pipeline
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    reads = os.path.join(tmp, "main.fa")
+    kw = dict(k=21, l=14, density=0.003, max_read_len=24_576)
+    prefix = os.path.join(tmp, f"whole_{leg}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.nthash_select.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if leg == "raw17":
+        st = pipeline.assemble(reads, Params(min_kmer_abundance=17, **kw),
+                               prefix, device=DEVICE)
+    else:
+        st = pipeline.assemble_device_table(
+            reads, Params(min_kmer_abundance=2, reads_already_hpc=True,
+                          use_bf=leg == "prehpc_bf", **kw),
+            prefix, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.nthash_select.launches
+    if launches <= 0:
+        raise SystemExit(f"whole-run main path ({leg}): nthash_select never "
+                         "launched")
+    if "phase1_nodes" not in st:
+        raise SystemExit(f"whole-run main path ({leg}): the run did not "
+                         "take the whole-run path")
+    (nodes, n_l) = gfa_signature(prefix)
+    n_rec = len(read_records(prefix))
+    if not (len(nodes) == st["nb_nodes"] == n_rec and n_l == st["nb_edges"]
+            and (n_rec > 0 or leg == "raw17")) or st["n_over"]:
+        raise SystemExit(f"whole-run main path ({leg}): inconsistent "
+                         f"outputs S={len(nodes)} L={n_l} records={n_rec} "
+                         f"stats={st}")
+    # phase 1 starts after the fourth chunk of 8,192 reads (a cut-down
+    # corpus may never get there, and then emits in one shot)
+    if leg != "raw17" and st["nb_chunks"] > 4 and not (
+            st["phase1_nodes"] > 0 and st.get("edge_join") == "device"):
+        raise SystemExit(f"whole-run main path ({leg}): phase 1 emitted "
+                         f"{st['phase1_nodes']} nodes, edges from the "
+                         f"{st.get('edge_join')} join")
+    out = dict(
+        read_gbp=syn["total_bases"] / 1e9, reads=st["nb_reads"],
+        nodes=st["nb_nodes"], edges=st["nb_edges"], chunks=st["nb_chunks"],
+        wall_s=wall, read_gbp_per_s=syn["total_bases"] / 1e9 / wall,
+        phases=st["phases"], peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        nthash_select_launches=launches, phase1_fired=st["phase1_nodes"] > 0,
+        phase1_nodes=st["phase1_nodes"],
+        phase1_finalize_s=st.get("phase1_finalize_s"),
+        phase1_emit_s=st.get("phase1_emit_s"), n_over=st["n_over"],
+        edge_join=st.get("edge_join"), read_cap=st["read_cap"],
+        w_slot=st["w_slot"], mem_budget=st["mem_budget"])
+    if chunked is not None:
+        cst, cprefix = chunked
+        if (nodes, n_l) != gfa_signature(cprefix):
+            raise SystemExit(
+                f"whole-run main path ({leg}): {len(nodes)} nodes / {n_l} "
+                f"edges, the chunked leg has {cst['nodes']} / "
+                f"{cst['edges']} or another (LN, KC) multiset")
+        out["same_graph_as_chunked"] = True
+        out["gfa_identical_to_chunked"] = (
+            open(prefix + ".gfa", "rb").read()
+            == open(cprefix + ".gfa", "rb").read())
+    return out
+
+
+def finalize_breakdown(tmp: str, Params) -> dict:
+    """Device time by torch op over one finalize_compact of the whole
+    pre-HPC'd main corpus: the buffers are filled through the whole-run
+    driver's own steps (plan_table, new_table_counter,
+    construct_table_chunk), then the reduction runs once to warm up, three
+    times unprofiled (median wall) and three times under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rust_mdbg_tpu_torch.core.fastx_feed import stream_chunks
+    from rust_mdbg_tpu_torch.core.pipeline import (construct_table_chunk,
+                                                   new_table_counter,
+                                                   plan_table)
+
+    reads = os.path.join(tmp, "main.fa")
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2,
+               reads_already_hpc=True, max_read_len=24_576)
+    plan = plan_table(reads, p)
+    counter = new_table_counter(p, plan, torch.device(DEVICE))
+    read_base = 0
+    for codes, lens, _blob, _off, fill in stream_chunks(
+            reads, plan["chunk_reads"], plan["B"], plan["L"],
+            plan["mean_len"]):
+        if fill:
+            construct_table_chunk(p, plan, counter, codes, lens, fill,
+                                  read_base)
+            read_base += plan["chunk_reads"]
+    pending = counter.finalize_dispatch()
+    torch.cuda.synchronize()
+    out = pending()
+    rows = int(((counter.buffers[0] != -1) | (counter.buffers[1] != -1))
+               .sum())
+    res = dict(rows=counter.window_cap, filled_rows=rows,
+               n_pass=out["n_pass"], n_unique=out["n_unique"])
+    del out
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the tracer was seen to drop device records of a window this short (78
+    # of 174 events in one run of three): profile three times and keep the
+    # attempt with the most device events
+    attempts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pending()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        attempts.append((len(spans), window_ms, spans, prof))
+    _n, window_ms, spans, prof = max(attempts, key=lambda a: a[0])
+    busy = 0.0
+    end = float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ops = sorted(((a.key, a.self_device_time_total, a.count)
+                  for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU
+                  and a.self_device_time_total > 0), key=lambda r: -r[1])
+    res.update(
+        unprofiled_ms=sorted(walls)[1], window_ms=window_ms,
+        device_events=len(spans),
+        device_events_by_attempt=[a[0] for a in attempts],
+        busy_ms=busy / 1e3,
+        temporaries_peak_bytes=torch.cuda.max_memory_allocated() - base,
+        buffers_bytes=base,
+        top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
+    return res
+
+
 def _short(kernel: str) -> str:
     for junk in ("void ", "at::native::", "(anonymous namespace)::",
                  "at::cuda::detail::"):
@@ -498,11 +745,26 @@ def main() -> int:
         print(f"pre-HPC main path: {json.dumps(hp)}", flush=True)
         bd = construct_breakdown(tmp, Params)
         print(f"construct breakdown: {json.dumps(bd)}", flush=True)
+
+        t0 = time.perf_counter()
+        wpar = whole_run_parity(tmp, Params)
+        wpar["seconds"] = time.perf_counter() - t0
+        print(f"whole-run parity: {json.dumps(wpar)}", flush=True)
+        whole = {}
+        for leg, chunked in (("prehpc", (hp, os.path.join(tmp, "main_hpc"))),
+                             ("raw17", None), ("prehpc_bf", None)):
+            whole[leg] = whole_run_main(tmp, Params, syn, leg, chunked)
+            print(f"whole-run main path ({leg}): {json.dumps(whole[leg])}",
+                  flush=True)
+        fb = finalize_breakdown(tmp, Params)
+        print(f"finalize breakdown: {json.dumps(fb)}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    rows[0]["launches_by_leg"] = dict(raw=mp["nthash_select_launches"],
-                                      prehpc=hp["nthash_select_launches"])
+    rows[0]["launches_by_leg"] = dict(
+        raw=mp["nthash_select_launches"], prehpc=hp["nthash_select_launches"],
+        **{f"whole_{leg}": w["nthash_select_launches"]
+           for leg, w in whole.items()})
     rows[0]["launches"] = sum(rows[0]["launches_by_leg"].values())
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

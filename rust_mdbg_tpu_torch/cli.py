@@ -1,12 +1,15 @@
 """Command-line interface of the port.
 
     python -m rust_mdbg_tpu_torch reads.fa -k K -l L --density D \
-        --minabund N --prefix P [--device cuda|cpu]
+        --minabund N --prefix P [--skiphpc] [--bf [--bf-bits N]]
+        [--device cuda|cpu]
 
-The flags of the JAX package's CLI that select paths this port does not
-run yet are accepted and rejected with a "not ported yet" error naming
-ROADMAP.md, so a command line written for `python -m rust_mdbg_tpu` fails
-clearly instead of running something else.
+The run goes through core/pipeline.assemble, which takes the chunked driver
+for --minabund up to 16 and the whole-run device path above it, as
+`python -m rust_mdbg_tpu` does.  The flags of the JAX package's CLI that
+select paths this port does not run yet are accepted and rejected with a
+"not ported yet" error naming ROADMAP.md, so a command line written for
+`python -m rust_mdbg_tpu` fails clearly instead of running something else.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from .params import Params, autodetect_k_l_d, default_prefix
 
 #: flags of the JAX package's CLI whose paths are later slices
 _NOT_PORTED = {
-    "bf": "--bf", "syncmers": "--syncmers", "lmer_counts": "--lmer-counts",
+    "syncmers": "--syncmers", "lmer_counts": "--lmer-counts",
     "uhs": "--uhs", "lcp": "--lcp", "error_correct": "--error-correct",
     "restart_from_postcor": "--restart-from-postcor",
     "reference": "--reference", "read_stats": "--read-stats",
@@ -43,6 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-basespace", action="store_true")
     p.add_argument("--skiphpc", action="store_true",
                    help="reads are already homopolymer-compressed")
+    p.add_argument("--bf", action="store_true",
+                   help="Bloom filter: count a k-min-mer from its second "
+                        "sighting on")
+    p.add_argument("--bf-bits", type=int, default=32,
+                   help="log2 Bloom filter bits for --bf (default 32)")
     p.add_argument("--batch-reads", type=int, default=512)
     p.add_argument("--max-read-len", type=int, default=0)
     p.add_argument("--chunk-reads", type=int, default=0,
@@ -81,6 +89,7 @@ def params_from_args(args) -> tuple[Params, str]:
         k=k, l=l, density=density, min_kmer_abundance=args.minabund,
         presimp=args.presimp, no_basespace=bool(args.no_basespace),
         reads_already_hpc=bool(args.skiphpc),
+        use_bf=bool(args.bf), bloom_log2_bits=args.bf_bits,
         batch_reads=args.batch_reads, max_read_len=args.max_read_len,
         chunk_reads=args.chunk_reads)
     prefix = args.prefix if args.prefix is not None else default_prefix(params)
@@ -94,13 +103,11 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     params, prefix = params_from_args(args)
-    from .core.chunked import assemble_device_chunked
+    from .core.pipeline import assemble
     from .utils.timing import max_rss_bytes
 
     t0 = time.time()
-    stats = assemble_device_chunked(args.reads, params, prefix,
-                                    chunk_reads=params.chunk_reads,
-                                    device=args.device)
+    stats = assemble(args.reads, params, prefix, device=args.device)
     print(f"Number of reads: {stats.get('nb_reads', 0)}")
     print(f"Number of mdBG nodes: {stats.get('nb_nodes', 0)}")
     print(f"Number of mdBG edges: {stats.get('nb_edges', 0)}")

@@ -1,9 +1,12 @@
 """Chunked construction: device reduction per chunk, native C++ global merge.
 
 Counterpart of the JAX package's `core/chunked.assemble_device_chunked`
-(density scheme, --minabund <= 16, no --bf), in vector mode for raw reads
-and in recompute mode for pre-HPC'd ones.  The input streams in fixed-size
-chunks:
+(density scheme, --minabund up to MAX_CHUNK_SLOTS; core/pipeline.assemble
+sends larger ones to the whole-run path), in vector mode for raw reads and
+in recompute mode for pre-HPC'd ones.  With --bf the device construct does
+not screen: the Bloom filter is the host merge's (nt_merge_chunk marks a
+key's first global sighting and counts from the second).  The input streams
+in fixed-size chunks:
 
   per chunk (device):   unpack -> HPC -> ntHash + density select (the
                         nthash_select kernel) -> compaction -> window keys
@@ -46,7 +49,7 @@ from ..io.sequences import remove_stale, write_records_native
 from ..ops import u64
 from ..params import Params, staging_width
 from ..utils.timing import PhaseTimer
-from .device_out import minimizer_recompute_ok
+from .device_out import keys6_from_gk, minimizer_recompute_ok, node_offsets
 from .graph import IncrementalGFA, build_gfa, build_gfa_precomputed
 from .nodetable import NodeTable
 
@@ -78,13 +81,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def chunked_eligible(params: Params) -> bool:
+    """The chunk emission carries min_abundance occurrence slots, which
+    makes the crossing capture exact for any min_abundance up to
+    MAX_CHUNK_SLOTS (the merge's selector never exceeds min_abundance).
+    Beyond the ceiling core/pipeline.assemble takes the whole-run path."""
+    return params.min_kmer_abundance <= MAX_CHUNK_SLOTS or params.reference
+
+
 def check_ported(params: Params):
-    """Raise NotPortedError for Params that select a path outside this
-    slice."""
+    """Raise NotPortedError for Params that select a path the port does not
+    run yet."""
     if getattr(params, "seq_ref_cuts", False):
         raise NotPortedError("reference-cut spans")
-    if params.use_bf:
-        raise NotPortedError("--bf")
     if params.use_syncmers or params.uhs or params.lcp \
             or params.has_lmer_counts:
         raise NotPortedError("minimizer schemes other than density")
@@ -92,9 +101,6 @@ def check_ported(params: Params):
         raise NotPortedError("error correction")
     if params.reference:
         raise NotPortedError("--reference")
-    if params.min_kmer_abundance > MAX_CHUNK_SLOTS:
-        raise NotPortedError(
-            f"--minabund > {MAX_CHUNK_SLOTS} (the whole-run finalize)")
 
 
 def plan_chunks(reads_path: str, params: Params, chunk_reads: int = 0) -> dict:
@@ -182,7 +188,8 @@ def construct_chunk(params: Params, plan: dict, counter, staged: tuple,
     _n, n_over = construct_batches(
         params, staged if plan["packed"] else staged[0], lens_d,
         counter.buffers, B=B, M=plan["M"], w_slot=plan["w_slot"],
-        batch_lo=0, batch_hi=min(plan["n_batches"], (fill + B - 1) // B))
+        batch_lo=0, batch_hi=min(plan["n_batches"], (fill + B - 1) // B),
+        bf=False)  # --bf is screened by the host merge (nt_merge_chunk)
     res = counter.finalize_chunk()
     return res, int(n_over)
 
@@ -190,12 +197,9 @@ def construct_chunk(params: Params, plan: dict, counter, staged: tuple,
 def _host_join_gfa(prefix, params, nodes, gk: np.ndarray, gf: np.ndarray):
     """Host km_index join from id-ordered fingerprints (the path without a
     catalog, after a spill, and the G_SLOTS-overflow fallback)."""
-    Fs, Fp, FsR, FpR = gk[:, 0:2], gk[:, 2:4], gk[:, 4:6], gk[:, 6:8]
-    key_suf = np.where((gf & 1).astype(bool)[:, None], Fs, FsR)
-    key_pre = np.where((gf & 2).astype(bool)[:, None], Fp, FpR)
-    return build_gfa_precomputed(
-        f"{prefix}.gfa", nodes, (Fs, Fp, FsR, FpR, key_suf, key_pre),
-        presimp=params.presimp)
+    return build_gfa_precomputed(f"{prefix}.gfa", nodes,
+                                 keys6_from_gk(gk, gf),
+                                 presimp=params.presimp)
 
 
 def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
@@ -210,9 +214,15 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     `join_wall_s` (ops/edge_join.PotJoin says what each covers)."""
     from ..ops.edge_join import DeviceKeyCatalog
     from ..ops.kernels import build_all
+    from ..ops.sort_count import CLIPPED_MSG
 
     dev = resolve_device(device)
     check_ported(params)
+    if not chunked_eligible(params):
+        raise RuntimeError(
+            f"chunked counting carries at most {MAX_CHUNK_SLOTS} occurrence "
+            f"slots; --minabund > {MAX_CHUNK_SLOTS} takes the whole-run path "
+            "(core/pipeline.assemble)")
     timer = timer or PhaseTimer()
     stats = stats if stats is not None else {}
 
@@ -306,25 +316,10 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                 else:
                     vec, meta, n_clipped = counter.gather_crossing(occs)
             if n_clipped:
-                raise RuntimeError(
-                    f"{n_clipped} crossing windows have an extent correction "
-                    "outside 16 bits (a homopolymer run of 64 KB at a "
-                    "window's last l-mer)")
+                raise RuntimeError(CLIPPED_MSG.format(n_clipped))
             seqlen = meta[:, 0].astype(np.uint32)
-            shift0 = (meta[:, 1] & 0x7FFFFFFF).astype(np.uint16)
-            shift1 = (meta[:, 2] & 0x7FFFFFFF).astype(np.uint16)
-            rev = (meta[:, 2] >> 31).astype(np.uint8)
-            seq_shift0, seq_shift1 = shift0, shift1
-            ext_delta = 0
-            if meta.shape[1] > 5:
-                # exact-cut corrections (extpack column, raw inputs)
-                ext_delta = (meta[:, 5] >> 16).astype(np.int64)
-                de1 = (meta[:, 5] & 0xFFFF).astype(np.int64) - 0x8000
-                r = rev.astype(bool)
-                seq_shift0 = np.where(r, shift0 + de1, shift0) \
-                    .astype(np.uint16)
-                seq_shift1 = np.where(r, shift1, shift1 + de1) \
-                    .astype(np.uint16)
+            shift0, shift1, seq_shift0, seq_shift1, rev, abs_start, \
+                abs_end = node_offsets(params, meta, blob_off)
             with timer.phase("meta"):
                 index_c = table.set_meta_batch(res["key_lo"][cross],
                                                res["key_hi"][cross],
@@ -337,10 +332,6 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                     gf_arrs.append(gflag)
             if not params.no_basespace:
                 with timer.phase("sequences"):
-                    start = meta[:, 3].astype(np.int64)
-                    rows = meta[:, 4].astype(np.int64)
-                    abs_start = blob_off[rows] + start
-                    abs_end = abs_start + seqlen + (params.l - 2) + ext_delta
                     write_records_native(
                         f"{prefix}.{chunk_i}.sequences", params.k, params.l,
                         index_c, vec, blob, abs_start, abs_end, rev,

@@ -1,9 +1,10 @@
 """mdBG edge construction, presimp filtering and GFA emission.
 
-A copy of the parts of the JAX package's core/graph.py that core/chunked
-needs: `build_gfa` from k-vectors (vector mode), and for recompute
+A copy of the parts of the JAX package's core/graph.py that the device
+drivers need: `build_gfa` from k-vectors (vector mode), for recompute
 mode `build_gfa_precomputed` from overlap fingerprints (the host join) and
-`IncrementalGFA.finish_pot` from a device-joined candidate list.
+`IncrementalGFA.finish_pot` from a device-joined candidate list, and for
+the whole-run path's phased emission the deferred abundances.
 
 Parity target: rust-mdbg src/main.rs:1006-1121.
 
@@ -73,10 +74,12 @@ class IncrementalGFA:
     Chunks must arrive in node-id order — S lines and km_index insertion
     order follow feed order (main.rs:1023-1032).  `finish` enumerates edges
     with the host km_index join; `finish_pot` takes them from a device
-    join.  One that is neither finished nor aborted leaks its native
-    state."""
+    join.  With defer_abundance the S lines are rendered at the finish,
+    from the abundances that set_abundance supplied: phased feeding knows a
+    node's whole-run count only after the last phase.  One that is neither
+    finished nor aborted leaks its native state."""
 
-    def __init__(self, cap_hint: int = 0):
+    def __init__(self, cap_hint: int = 0, defer_abundance: bool = False):
         import ctypes
 
         from ..native import load
@@ -97,9 +100,25 @@ class IncrementalGFA:
             ctypes.c_int64, ctypes.c_void_p]
         self._lib.gfa_abort.restype = None
         self._lib.gfa_abort.argtypes = [ctypes.c_void_p]
+        self._lib.gfa_defer_s.restype = None
+        self._lib.gfa_defer_s.argtypes = [ctypes.c_void_p]
+        self._lib.gfa_set_abundance.restype = None
+        self._lib.gfa_set_abundance.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
         self._h = self._lib.gfa_begin(int(cap_hint))
+        if defer_abundance:
+            self._lib.gfa_defer_s(self._h)
         self._ctypes = ctypes
         self.n_nodes = 0
+
+    def set_abundance(self, abundance):
+        """Overwrite the abundances of every node fed so far, in feed
+        order, before the finish."""
+        ab = np.ascontiguousarray(abundance, dtype=np.uint32)
+        if len(ab) != self.n_nodes:
+            raise ValueError(f"{len(ab)} abundances for {self.n_nodes} nodes")
+        self._lib.gfa_set_abundance(
+            self._h, ab.ctypes.data_as(self._ctypes.c_void_p), len(ab))
 
     def add_chunk(self, index, abundance, seqlen, shift0, shift1, keys6):
         """keys6=None: keys-free feeding — the edge join runs on the device

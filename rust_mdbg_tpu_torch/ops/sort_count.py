@@ -1,6 +1,9 @@
-"""Chunk-resident k-min-mer counting: construct -> sort -> segment-reduce.
+"""Device-resident k-min-mer counting: construct -> sort -> segment-reduce.
 
-Counterpart of the chunked half of the JAX package's `ops/sort_count.py`.
+Counterpart of the JAX package's `ops/sort_count.py`: the chunked half
+(`finalize_chunk`, one reduction per chunk, merged on the host) and the
+whole-run half (`finalize_compact`, one reduction over every window of the
+run, the crossing selected on the device for any --minabund).
 Every batch's VALID window keys (128-bit canonical fingerprints from
 ops/extract) are compacted into fixed per-batch slots of the counter
 buffers, beside their window coordinate occ = read_row * W + w and the
@@ -22,13 +25,24 @@ are held as int64 bit patterns, see ops/u64.py):
   b_mp        int32 [read_cap, M]        raw minimizer positions
   b_mpe       int32 [read_cap, M]        extent ends minus l (raw reads
                                          only: counter_flags' with_ext)
+  bits        int32 [2^bloom_log2 / 32]  the --bf Bloom filter as u32 words
+                                         held as int32 bit patterns (whole
+                                         run with counter_flags' use_bf
+                                         only); always the last plane
 
 Buffers are updated in place (the JAX package donates and replaces them).
+The whole-run driver relies on one invariant of that: batch i of a run
+writes key rows [read_base * W_slot, ...) and minimizer rows [read_base,
+...) of ITS reads only, so a reduction over the rows below an earlier
+read_base (finalize_compact's prefix_rows) reads nothing a later construct
+writes, and may run beside it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -68,25 +82,87 @@ def window_slot_capacity(params, B: int, L: int, M: int) -> int:
     return max(8, min(W, (w + 7) & ~7))
 
 
+def no_mpos() -> bool:
+    """MDBG_NO_MPOS=1 drops the per-node record-position plane from the
+    whole-run finalize output: the native .sequences writer then re-derives
+    the minimizers by rolling ntHash over each record, trading 4k B/node of
+    device-to-host transfer for host hashing."""
+    return os.environ.get("MDBG_NO_MPOS", "0") == "1"
+
+
+#: the multiplier of the native table's single-hash Bloom
+#: (native/mdbg_core.cpp nt_add), as int64 bits
+_BLOOM_MUL = u64.s64(0x9E3779B97F4A7C15)
+
+
+def bloom_pass(key_lo, key_hi, valid, bits):
+    """--bf screen over one batch's window keys, in stream order.
+
+    Device twin of the native table's single-hash Bloom (bit = (lo ^ (hi *
+    0x9E3779B97F4A7C15)) & mask; the wrapping int64 multiply gives the same
+    bits): a window is KEPT iff its bit was set by an earlier batch or by an
+    earlier window of this batch; every valid window sets its bit.  Same bit
+    indices as the host filter, so the same false positives.
+
+    Order within the batch comes from one stable sort of the valid rows' bit
+    indices: the first row of a bit keeps only if the bit was already set,
+    later rows always keep.  Only valid rows are scattered, each to its own
+    index.  The first rows of bits not yet set are added into `bits`: every
+    (word, bit) arrives at most once and the bits of a word are disjoint, so
+    the wrapping int32 add equals an or, in any order.
+
+    key_lo, key_hi int64 [N] (u64 bits), valid bool [N], bits int32 [m / 32]
+    with m a power of two, updated in place.  Returns keep bool [N].
+    """
+    m_bits = bits.shape[0] * 32
+    bidx = (key_lo ^ (key_hi * _BLOOM_MUL)) & (m_bits - 1)
+    one = torch.ones((), dtype=torch.int32, device=bits.device)
+    mem = (bits[bidx >> 5] & (one << (bidx & 31).to(torch.int32))) != 0
+
+    vi = torch.nonzero(valid).flatten()
+    order = torch.sort(bidx[vi], stable=True)
+    sb, si = order.values, vi[order.indices]
+    first = torch.ones_like(sb, dtype=torch.bool)
+    first[1:] = sb[1:] != sb[:-1]
+    dup = torch.zeros_like(valid)
+    dup[si] = ~first
+    keep = valid & (mem | dup)
+    ins = sb[first & ~mem[si]]
+    bits.index_add_(0, ins >> 5, one << (ins & 31).to(torch.int32))
+    return keep
+
+
 def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
                       M: int, w_slot: int, batch_lo: int, batch_hi: int,
-                      read_base: int = 0):
+                      read_base: int = 0, bf: bool | None = None):
     """Extract batches [batch_lo, batch_hi) of a staged chunk and append
     their window keys and minimizer rows to `buffers` (in place).
 
     all_codes is either the codes tensor [n*B, L] u8 or the packed feed
     (packed [n*B, L//4], mask [n*B, L//8]) from ops.pack.pack_codes_np,
-    unpacked per batch.  Returns device scalars (n_windows, n_overflow);
-    n_overflow counts minimizer-capacity reads plus window-slot batches.
+    unpacked per batch.  read_base is the global row of the chunk's first
+    read.  Returns device scalars (n_windows, n_overflow); n_overflow counts
+    minimizer-capacity reads plus window-slot batches.
+
+    bf (default: counter_flags' use_bf) screens every batch through
+    bloom_pass before the slot append, so the counter holds each key's
+    sightings from the second on; the Bloom words are the last plane of
+    `buffers`.  The chunked driver passes bf=False: its Bloom lives in the
+    host merge and must not screen twice.
     """
     b_lo, b_hi, b_occ, b_mh, b_mp = buffers[:5]
-    with_ext = counter_flags(params)["with_ext"]
-    if len(buffers) != 5 + with_ext:
+    flags = counter_flags(params)
+    with_ext = flags["with_ext"]
+    bf_on = flags["use_bf"] if bf is None else bf
+    if len(buffers) != 5 + with_ext + bf_on:
         raise ValueError(
-            f"{len(buffers)} buffer planes for with_ext={with_ext}")
+            f"{len(buffers)} buffer planes for with_ext={with_ext}, "
+            f"bf={bf_on}")
     dev = b_lo.device
     W = M - params.k + 1
     S = B * w_slot
+    if (read_base + batch_hi * B) * W > u64.U32_MAX:
+        raise ValueError("window coordinates (read row * W + w) pass 32 bits")
     pos = torch.arange(S, device=dev)
     n_win = torch.zeros((), dtype=torch.int64, device=dev)
     n_over = torch.zeros((), dtype=torch.int64, device=dev)
@@ -100,18 +176,33 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
                             hash_bound=params.hash_bound, M=M,
                             already_hpc=params.reads_already_hpc)
         row0 = read_base + i * B
-        # batch-slot compaction: valid windows are a per-read prefix, so
-        # output position p maps to (row, w) via the rank of p in the
-        # cumulative per-read window counts
-        offs = torch.zeros(B + 1, dtype=torch.int64, device=dev)
-        offs[1:] = torch.cumsum(out["nw"], dim=0)
-        nv = offs[B]
-        row = torch.clamp(torch.searchsorted(offs[1:], pos, right=True),
-                          max=B - 1)
-        w = pos - offs[row]
-        valid = pos < torch.clamp(nv, max=S)
-        src = torch.clamp(row * W + w, 0, B * W - 1)
         keys_flat = out["keys"].reshape(B * W, 2)
+        if bf_on:
+            # the kept windows are no per-read prefix any more: their flat
+            # positions, ascending, are the slot's rows
+            valid_w = (torch.arange(W, device=dev)[None, :]
+                       < out["nw"][:, None]).reshape(B * W)
+            kept = torch.nonzero(bloom_pass(
+                keys_flat[:, 0], keys_flat[:, 1], valid_w,
+                buffers[-1])).flatten()
+            nv = torch.tensor(kept.shape[0], device=dev)
+            src = torch.zeros(S, dtype=torch.int64, device=dev)
+            src[: min(S, kept.shape[0])] = kept[:S]
+            row = src // W
+            w = src - row * W
+            valid = pos < min(S, kept.shape[0])
+        else:
+            # batch-slot compaction: valid windows are a per-read prefix, so
+            # output position p maps to (row, w) via the rank of p in the
+            # cumulative per-read window counts
+            offs = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+            offs[1:] = torch.cumsum(out["nw"], dim=0)
+            nv = offs[B]
+            row = torch.clamp(torch.searchsorted(offs[1:], pos, right=True),
+                              max=B - 1)
+            w = pos - offs[row]
+            valid = pos < torch.clamp(nv, max=S)
+            src = torch.clamp(row * W + w, 0, B * W - 1)
         slot0 = row0 * w_slot
         b_lo[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 0],
                                               u64.SENTINEL)
@@ -162,6 +253,73 @@ def finalize_chunk(b_lo, b_hi, b_occ, *, slots: int):
     order = torch.argsort(socc[head_pos], stable=True)
     return (slo[head_pos][order], shi[head_pos][order], counts[order],
             occs[order])
+
+
+def finalize_compact(b_lo, b_hi, b_occ, b_mh, b_mp, b_mpe=None, *, k: int,
+                     M: int, minab: int, emit_mpos: bool = False,
+                     prefix_rows: int | None = None, bf: bool = False) -> dict:
+    """Whole-run reduction: the keys that reach `minab` sightings, in
+    crossing-occurrence order, with their counts and the window metadata of
+    the crossing sighting (gathered from b_mh/b_mp at occ // W, occ % W).
+
+    Node ids follow the crossing occurrence (the order in which rust-mdbg
+    writes .sequences records, src/main.rs:693-707; first-occurrence order
+    for minab == 1).  That order is monotone in the window stream, so a
+    reduction over a longer prefix of the buffers (`prefix_rows`, a multiple
+    of a batch's slot) reproduces an earlier one's rows as an exact prefix
+    of its own — a key's crossing sighting never changes once crossed; only
+    its count grows.  Phased emission rests on this.
+
+    Under `bf` the buffers hold each key's sightings from the second on
+    (bloom_pass dropped the first, src/main.rs:639-662), so the crossing row
+    is the (minab - 1)-th of its run and the count adds the dropped one back.
+
+    What the JAX function carries for XLA's static shapes has no
+    counterpart here: `torch.nonzero` gives the run heads and the crossing
+    rows exactly, so there is no pass_cap or node_cap, no searchsorted
+    compaction, no overflow re-run and no power-of-two fetch slice; its two
+    log-step scans (distance to the run head, run length) reduce to
+    differences of consecutive head positions; and the 16-bit `meta16`
+    wire packing is dropped: `meta` is always the canonical u32 layout.
+    Empty rows are dropped before the sort, which they would only trail.
+
+    Returns tensors on the buffers' device, n_pass rows each: key_lo, key_hi
+    (int64 u64 bits), count, vec [n, k], meta [n, 5 or 6] (see
+    gather_window_meta), mpos [n, k] with emit_mpos; and n_pass, n_unique
+    (ints) and n_clipped (device scalar, see gather_window_meta).
+    """
+    if prefix_rows is not None:
+        b_lo, b_hi, b_occ = (b[:prefix_rows] for b in (b_lo, b_hi, b_occ))
+    filled = torch.nonzero((b_lo != u64.SENTINEL)
+                           | (b_hi != u64.SENTINEL)).flatten()
+    lo, hi, occ = b_lo[filled], b_hi[filled], b_occ[filled]
+    del filled
+    # keys sort by (lo, hi) unsigned, then occ: any total order of the keys
+    # serves, only the order within a key (by occ, unique per row) matters
+    perm = u64.lexsort([lo, hi, occ], [True, True, False])
+    slo, shi, socc = lo[perm], hi[perm], occ[perm]
+    del lo, hi, occ, perm
+    n_valid = slo.shape[0]
+    head = torch.ones(n_valid, dtype=torch.bool, device=slo.device)
+    head[1:] = (slo[1:] != slo[:-1]) | (shi[1:] != shi[:-1])
+    head_pos = torch.nonzero(head).flatten()
+    n_unique = head_pos.shape[0]
+    run = torch.diff(head_pos, append=head_pos.new_tensor([n_valid]))
+    minab_sel = minab - 1 if bf else minab
+    if minab_sel < 1:
+        raise ValueError("bf needs minab > 1 (counter_flags' use_bf)")
+    crossed = run >= minab_sel
+    cpos = head_pos[crossed] + (minab_sel - 1)
+    cross_occ, order = torch.sort(socc[cpos])
+    cpos = cpos[order]
+    gw = gather_window_meta(b_mh, b_mp, cross_occ, k=k, M=M, b_mpe=b_mpe,
+                            with_record_pos=emit_mpos)
+    out = dict(key_lo=slo[cpos], key_hi=shi[cpos],
+               count=run[crossed][order] + int(bf), vec=gw[0], meta=gw[1],
+               n_clipped=gw[2], n_pass=int(cpos.shape[0]), n_unique=n_unique)
+    if emit_mpos:
+        out["mpos"] = gw[3]
+    return out
 
 
 def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None,
@@ -243,37 +401,67 @@ def _u32_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def buffers_from_numpy(bufs, device) -> tuple:
     """The JAX counter's buffers as numpy (u64 lo/hi, u32 occ, u64 mh,
-    i32 mp[, i32 mpe]) -> this module's tensors on `device` (copies: the
-    construct updates them in place)."""
+    i32 mp[, i32 mpe][, u32 Bloom words]) -> this module's tensors on
+    `device` (copies: the construct updates them in place)."""
     lo, hi, occ, mh, mp = bufs[:5]
+
     def i_plane(a, dt):
         return torch.from_numpy(np.asarray(a, dtype=dt)).to(device, copy=True)
+
+    def tail(a):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:    # the Bloom words: same bits as int32
+            a = np.ascontiguousarray(a).view(np.int32)
+        return i_plane(a, np.int32)
 
     out = (u64.from_numpy(lo, device), u64.from_numpy(hi, device),
            i_plane(occ, np.int64), u64.from_numpy(mh, device),
            i_plane(mp, np.int32))
-    return out + tuple(i_plane(b, np.int32) for b in bufs[5:])
+    return out + tuple(tail(b) for b in bufs[5:])
 
 
 def buffers_to_numpy(bufs) -> tuple:
-    """Inverse of buffers_from_numpy."""
+    """Inverse of buffers_from_numpy (a 1-D plane past the fifth is the
+    Bloom words and comes back as u32)."""
     lo, hi, occ, mh, mp = bufs[:5]
     out = (u64.to_numpy(lo), u64.to_numpy(hi),
            occ.cpu().numpy().astype(np.uint32), u64.to_numpy(mh),
            mp.cpu().numpy())
-    return out + tuple(b.cpu().numpy() for b in bufs[5:])
+    return out + tuple(
+        b.cpu().numpy().view(np.uint32) if b.dim() == 1 else b.cpu().numpy()
+        for b in bufs[5:])
+
+
+CLIPPED_MSG = ("{} crossing windows have an extent correction outside 16 "
+               "bits (a homopolymer run of 64 KB at a window's last l-mer)")
 
 
 class DeviceNodeCounter:
-    """Counter buffers for one chunk of reads, plus the per-chunk reduction
-    and crossing gathers that core/chunked calls.  with_ext (raw inputs)
-    carries the extent plane; without it the buffers are five planes."""
+    """Counter buffers on one device, for one chunk of reads (core/chunked:
+    finalize_chunk, occ_at_chunk, the crossing gathers, reset_chunk) or for
+    a whole run (core/pipeline: grow, finalize_dispatch / finalize_resolve /
+    finalize, edge_join).  with_ext (raw inputs) carries the extent plane;
+    use_bf (whole run only) the Bloom words, always the last plane.
+
+    emit_overlap_keys (recompute mode, pre-HPC'd reads) makes the whole-run
+    finalize return record positions and the overlap fingerprints instead
+    of shipping the k-vectors; it never combines with with_ext."""
 
     def __init__(self, k: int, M: int, read_cap: int, w_slot: int,
-                 chunk_slots: int, device, with_ext: bool = True):
+                 chunk_slots: int, device, with_ext: bool = True,
+                 minab: int = 2, emit_overlap_keys: bool = False,
+                 use_bf: bool = False, bloom_log2_bits: int = 30):
+        if with_ext and emit_overlap_keys:
+            raise ValueError("recompute mode has no extent plane")
         self.k = k
         self.M = M
+        self.W_slot = w_slot
+        self.read_cap = read_cap
+        self.minab = minab
+        self.emit_overlap_keys = emit_overlap_keys
+        self.use_bf = use_bf
         self.chunk_slots = max(1, chunk_slots)
+        self._n_fin = 5 + int(with_ext)  # planes the reductions read
         dev = torch.device(device)
         n = read_cap * w_slot
         self.buffers = (
@@ -286,7 +474,115 @@ class DeviceNodeCounter:
         if with_ext:
             self.buffers += (
                 torch.zeros((read_cap, M), dtype=torch.int32, device=dev),)
+        if use_bf:
+            self.buffers += (torch.zeros((1 << bloom_log2_bits) // 32,
+                                         dtype=torch.int32, device=dev),)
         self._chunk_occs = None  # [n_unique, slots] of the last chunk
+
+    @property
+    def window_cap(self) -> int:
+        return self.read_cap * self.W_slot
+
+    # --- whole-run path (core/pipeline.assemble_device_table) ------------
+
+    def grow(self, min_read_cap: int):
+        """Double the read capacity until it holds min_read_cap reads,
+        copying the filled planes into new ones.  The old planes are not
+        touched: a reduction taken with finalize_dispatch before the call
+        keeps its references and goes on reading them."""
+        new_cap = self.read_cap
+        while new_cap < min_read_cap:
+            new_cap *= 2
+        if new_cap == self.read_cap:
+            return
+        n_old, n_new = self.window_cap, new_cap * self.W_slot
+        grown = []
+        for i, b in enumerate(self.buffers[: self._n_fin]):
+            if i < 3:
+                g = torch.full((n_new,), u64.SENTINEL if i < 2
+                               else u64.U32_MAX, dtype=b.dtype,
+                               device=b.device)
+                g[:n_old] = b
+            else:
+                g = torch.zeros((new_cap, self.M), dtype=b.dtype,
+                                device=b.device)
+                g[: self.read_cap] = b
+            grown.append(g)
+        # the Bloom words do not depend on the input size
+        self.buffers = tuple(grown) + self.buffers[self._n_fin :]
+        self.read_cap = new_cap
+
+    def finalize_dispatch(self, prefix_rows: int | None = None):
+        """The reduction over the buffers as they stand (or their first
+        prefix_rows key rows), bound but not run: finalize_resolve runs it.
+        `torch.nonzero` blocks the host, so a caller that wants the
+        reduction beside its next construct resolves it on another thread.
+        That is safe because the planes are captured here — a later grow()
+        leaves them alone — and later constructs write only rows past the
+        prefix (the module docstring's invariant)."""
+        return functools.partial(
+            finalize_compact, *self.buffers[: self._n_fin], k=self.k,
+            M=self.M, minab=self.minab,
+            emit_mpos=self.emit_overlap_keys and not no_mpos(),
+            prefix_rows=prefix_rows, bf=self.use_bf)
+
+    def finalize_resolve(self, pending, lazy: bool = False, row_lo: int = 0,
+                         gk_mode: str = "host"):
+        """Run a finalize_dispatch reduction and package its result.
+
+        row_lo: the first row the caller still needs (an earlier phase
+        emitted the rows below); a LazyNodes fetches only [row_lo, n_pass).
+
+        gk_mode (recompute mode): "host" computes the overlap fingerprints
+        and stages their copy to the host, for the host km_index join;
+        "device" computes them and keeps them on the device, for
+        edge_join; "none" skips them (a phase before the last needs no
+        keys under the device join).
+
+        lazy=False returns numpy arrays for every row: key_lo, key_hi,
+        count, meta, vec, index (and gk, gflag, mpos in recompute mode).
+        """
+        out = pending()
+        n_clipped = int(out.pop("n_clipped"))
+        if n_clipped:
+            raise RuntimeError(CLIPPED_MSG.format(n_clipped))
+        if self.emit_overlap_keys and gk_mode != "none":
+            out["gk"], out["gflag"] = overlap_keys_device(out["vec"])
+        if lazy:
+            from ..core.device_out import LazyNodes
+
+            return LazyNodes(out, row_lo=row_lo,
+                             want_vec=not self.emit_overlap_keys,
+                             want_gk=gk_mode == "host")
+        res = dict(index=np.arange(out["n_pass"], dtype=np.uint32))
+        for name in ("key_lo", "key_hi", "vec", "gk"):
+            if name in out:
+                res[name] = u64.to_numpy(out[name])
+        for name in ("count", "meta", "mpos"):
+            if name in out:
+                res[name] = _u32_to_numpy(out[name])
+        if "gflag" in out:
+            res["gflag"] = out["gflag"].cpu().numpy()
+        return res
+
+    def finalize(self, lazy: bool = False, prefix_rows: int | None = None,
+                 row_lo: int = 0, gk_mode: str = "host"):
+        """finalize_dispatch + finalize_resolve in one call."""
+        return self.finalize_resolve(self.finalize_dispatch(prefix_rows),
+                                     lazy=lazy, row_lo=row_lo,
+                                     gk_mode=gk_mode)
+
+    def edge_join(self, nodes):
+        """Start the device edge join (ops/edge_join.PotJoin) on the final
+        reduction's overlap keys; its list comes down while the caller
+        emits the tail.  None when the reduction carried no keys."""
+        from .edge_join import PotJoin
+
+        if not nodes.has("gk"):
+            return None
+        return PotJoin(nodes.device("gk"), nodes.device("gflag"))
+
+    # --- chunked path (core/chunked.py) -----------------------------------
 
     def finalize_chunk(self) -> dict:
         """Reduce the current chunk: unique keys (numpy u64) with per-chunk
@@ -318,7 +614,7 @@ class DeviceNodeCounter:
         without the extent plane, where meta has five columns)."""
         vec, meta, n_clipped = gather_window_meta(
             self.buffers[3], self.buffers[4], self._occs(occs), k=self.k,
-            M=self.M, b_mpe=self.buffers[5] if len(self.buffers) > 5 else None)
+            M=self.M, b_mpe=self.buffers[5] if self._n_fin > 5 else None)
         return u64.to_numpy(vec), _u32_to_numpy(meta), int(n_clipped)
 
     def gather_crossing_keys_dev(self, occs: np.ndarray):

@@ -216,7 +216,7 @@ def test_cli_skiphpc(tmp_path, hpc_reads):
     assert _records(p) == _records(q)
 
 
-@pytest.mark.parametrize("flag", [["--bf"], ["--mesh", "4"],
+@pytest.mark.parametrize("flag", [["--read-stats", "x.fa"], ["--mesh", "4"],
                                   ["--error-correct"], ["--reference"],
                                   ["--syncmers"]])
 def test_cli_rejects_unported_paths(tmp_path, reads, flag):
@@ -226,12 +226,23 @@ def test_cli_rejects_unported_paths(tmp_path, reads, flag):
 
 
 def test_unported_params_raise(tmp_path, reads):
-    for kw in (dict(use_bf=True), dict(min_kmer_abundance=17),
+    for kw in (dict(error_correct=True), dict(seq_ref_cuts=True),
                dict(reference=True),
                dict(reads_already_hpc=True, use_syncmers=True)):
         with pytest.raises(NotPortedError, match="ROADMAP.md"):
             assemble_device_chunked(reads, Params(**{**KW, **kw}),
                                     str(tmp_path / "x"), device="cpu")
+    # --bf and --minabund > 16 are ported: the first runs here (the Bloom
+    # is the host merge's), the second is the whole-run path's and the
+    # chunked driver refuses it by the JAX package's own gate
+    st = assemble_device_chunked(reads, Params(**{**KW, "use_bf": True,
+                                                  "bloom_log2_bits": 24}),
+                                 str(tmp_path / "bf"), device="cpu")
+    assert st["nb_nodes"] > 100
+    with pytest.raises(RuntimeError, match="occurrence slots"):
+        assemble_device_chunked(reads,
+                                Params(**{**KW, "min_kmer_abundance": 17}),
+                                str(tmp_path / "x"), device="cpu")
 
 
 def test_import_pulls_in_no_jax():
