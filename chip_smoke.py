@@ -45,7 +45,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    17 through `core/pipeline.assemble` (the route a user reaches), and the
    first leg again with --bf;
 8. the finalize breakdown: torch.profiler over one `finalize_compact` of
-   the whole pre-HPC'd main corpus, device time by torch op.
+   the whole pre-HPC'd main corpus, device time by torch op;
+9. scheme parity on the parity corpus, cuda = cpu in .gfa bytes and
+   .sequences records: --syncmers raw and pre-HPC'd through the chunked
+   driver and, on a 120x corpus of its own, at minabund 17 through the
+   whole-run table; through the streaming engine --lmer-counts, --uhs, --uhs --bf, --lcp (reads with N),
+   --reference on a 1.3 + 0.2 Mbp genome (tiled extraction, .ec_data bytes
+   too) and --read-stats (.read_stats bytes); every streaming leg and the
+   raw syncmer leg also against the numpy host engine (--engine host);
+10. three scheme legs over main.fa at [512, 24576] batches: (d) --syncmers
+    -s 4 raw through `assemble` (the chunked driver), (e) --uhs --bf
+    through the streaming engine, (f) --reference on the corpus's own
+    genome as one record; each with its wall, phases, graph, peak device
+    memory, rows re-extracted on the host, filter fill and the launches of
+    both kernels; a leg fails when more than 1 % of its rows were
+    re-extracted on the host (parity legs too) or a tile was;
+11. the syncmer breakdown: torch.profiler over one [512, 24576] batch of
+    the count-path extraction under --syncmers, device time by torch op
+    and the hand kernel's share.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -74,6 +91,11 @@ DEVICE = "cuda"
 #: 32-bit rate used for integer lane operations
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+
+
+#: the share of a streaming leg's reads that may overflow their compaction
+#: slots and be re-extracted on the host before the leg fails
+HOST_ROW_SHARE = 0.01
 
 
 def nvidia_smi() -> str:
@@ -126,14 +148,16 @@ def _mismatches(torch, got, want) -> int:
 def check_nthash_select(torch, np, hash_bound: int) -> dict:
     """The kernel vs its plain version: at the main path's batch shape,
     timed, and at small ragged shapes for l from 1 to 64, odd L, and a row
-    slice at an unaligned offset."""
+    slice at an unaligned offset, and the tiler's [8, 1049088]."""
     from rust_mdbg_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
     cases = {}
     small = [((24, 12291), l, 0) for l in (1, 13, 14, 31, 32, 64)]
     small += [((25, 12291), 14, 3), ((25, 4099), 64, 3), ((9, 37), 14, 0),
-              ((9, 37), 64, 0), ((16, 5008), 31, 0)]
+              ((9, 37), 64, 0), ((16, 5008), 31, 0),
+              # the long-sequence tiler's shape (ops/extract)
+              ((8, 1_049_088), 14, 0)]
     for (B, L), l, skip in small:
         codes, lengths = _nthash_batch(np, 100 + l, B, L, l)
         # a row slice of a contiguous tensor: rows start at skip * L bytes
@@ -193,6 +217,75 @@ def check_nthash_select(torch, np, hash_bound: int) -> dict:
         gbytes_per_s=nbytes / ms / 1e6, fill_ms=fill_ms,
         fill_gbytes_per_s=fill_bytes / fill_ms / 1e6,
         shape=[B, L], l=l, selected=n_sel, cases=cases)
+
+
+def _incumbent_planes(torch, np, seed: int, B: int, L: int, l: int, s: int):
+    """The four planes of the incumbent recurrence, made by the port's own
+    front half (ops/syncmers_device.syncmer_planes) from random codes with
+    N runs and ragged lengths; w = l - s + 1."""
+    from rust_mdbg_tpu_torch.ops.syncmers_device import syncmer_planes
+
+    codes, lengths = _nthash_batch(np, seed, B, L, l)
+    rng = np.random.default_rng(seed + 1)
+    for r in range(B):  # a few N runs per row, beside the sprinkled Ns
+        for j in rng.integers(0, max(1, L - 8), 3):
+            codes[r, j : j + int(rng.integers(1, 8))] = 4
+    dev = torch.device("cuda")
+    pl = syncmer_planes(torch.from_numpy(codes).to(dev),
+                        torch.from_numpy(lengths).to(dev), l=l, s=s,
+                        bound=int(0.05 * 4 ** l))
+    return tuple(pl[x] for x in ("lpos", "rpos", "run_start", "strict_new"))
+
+
+def check_syncmer_incumbent(torch, np) -> dict:
+    """The kernel vs its plain version (the column-by-column torch form),
+    element by element: at small ragged shapes over an (l, s) grid down to
+    w = 2, odd L, B not a multiple of the kernel's rows per block, and an
+    unaligned row slice; and at the main path's batch shape, timed."""
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    cases = {}
+    grid = [(14, 4, 0), (10, 4, 0), (12, 2, 0), (8, 7, 0), (12, 11, 0),
+            (14, 4, 3)]
+    for l, s, skip in grid:
+        B, L = 25, 6147
+        planes = _incumbent_planes(torch, np, 200 + l + s, B, L, l, s)
+        # a row slice of contiguous planes: rows start at skip * L elements
+        planes = tuple(x[skip:] for x in planes)
+        got = kernels.syncmer_incumbent(*planes)
+        key = f"[{B - skip}, {L}] l={l} s={s}" + (f" rows {skip}:" if skip
+                                                   else "")
+        cases[key] = int(
+            (got != kernels.syncmer_incumbent_plain(*planes)).sum())
+
+    B, L, l, s = 512, 24576, 14, 4
+    planes = _incumbent_planes(torch, np, 9, B, L, l, s)
+    got = kernels.syncmer_incumbent(*planes)
+    want = kernels.syncmer_incumbent_plain(*planes)
+    torch.cuda.synchronize()
+    main_mismatches = int((got != want).sum())
+    max_abs_err = float((got.long() - want.long()).abs().max())
+    del got, want
+    ms = cuda_time_ms(lambda: kernels.syncmer_incumbent(*planes), 50)
+    # L steps of seven launches each: one timed call after the warm-up
+    plain_ms = cuda_time_ms(lambda: kernels.syncmer_incumbent_plain(*planes),
+                            1)
+    # least time: the four planes read once (4 + 4 + 1 + 1 B/position), the
+    # trace written once (4 B); one compare and one select per position is
+    # nothing beside it
+    nbytes = B * L * 14
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(
+        name="syncmer_incumbent", route="cuda",
+        source="rust_mdbg_tpu_torch/csrc/syncmer_incumbent.cu",
+        replaces="rust_mdbg_tpu/ops/syncmers_device.py:97 (three lax.scan "
+                 "passes; no pallas_call)",
+        launches=0, max_abs_err=max_abs_err,
+        mismatches=main_mismatches + sum(cases.values()),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        bound_share=bound_ms / ms,
+        ops_bound_ms=B * L * 2 / INT32_OPS_PER_S * 1e3, library_ms=None,
+        gbytes_per_s=nbytes / ms / 1e6, shape=[B, L], l=l, s=s, cases=cases)
 
 
 def read_records(prefix: str):
@@ -285,14 +378,16 @@ def prehpc_parity(tmp: str, Params) -> dict:
 
 
 def write_main_corpus(tmp: str, genome_mbp: float) -> dict:
-    """main.fa, read by both main-path legs and the construct breakdown."""
+    """main.fa, read by every main-path leg and the breakdowns, and its
+    genome as one record (genome.fa, the --reference leg's input)."""
     from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
 
     t0 = time.perf_counter()
     syn = write_synthetic_reads(os.path.join(tmp, "main.fa"),
                                 genome_mbp=genome_mbp, coverage=52,
                                 read_len=24_576, error_rate=0.003, seed=0,
-                                repeat_frac=0.2)
+                                repeat_frac=0.2,
+                                genome_out=os.path.join(tmp, "genome.fa"))
     syn["fasta_write_s"] = time.perf_counter() - t0
     return syn
 
@@ -678,6 +773,380 @@ def finalize_breakdown(tmp: str, Params) -> dict:
     return res
 
 
+#: the syncmer legs' scheme: s = 4 and a density at which a read keeps
+#: within 2x of the density legs' minimizers (d / w of its HPC positions,
+#: w = l - s + 1 = 11, against 2 * 0.003)
+SYNC_KW = dict(use_syncmers=True, s=4, density=0.05)
+
+
+def _set_paths(p, **paths):
+    for attr, path in paths.items():
+        object.__setattr__(p, attr, path)
+    return p
+
+
+def _same_outputs(what: str, a: str, b: str, records: bool = True):
+    if open(a + ".gfa", "rb").read() != open(b + ".gfa", "rb").read():
+        raise SystemExit(f"{what}: .gfa differs")
+    if records and read_records(a) != read_records(b):
+        raise SystemExit(f"{what}: .sequences records differ")
+
+
+def write_scheme_inputs(tmp: str, np) -> dict:
+    """Seeded inputs of the scheme parity legs, beside parity.fa: the reads
+    with a few N, an lmer-count file (the 14-mers of the first 12 reads
+    after homopolymer compression, as a k-mer counter prints them, every
+    seventh with an outlier count above lmer_counts_max), UHS and LCP files
+    of random 14-mers, and a two-record genome of 1.3 + 0.2 Mbp."""
+    import re
+    from collections import Counter
+
+    rng = np.random.default_rng(5)
+    reads = os.path.join(tmp, "parity.fa")
+    out = dict(reads=reads, reads_n=os.path.join(tmp, "parity_n.fa"),
+               lmers=os.path.join(tmp, "lmers.txt"),
+               uhs=os.path.join(tmp, "uhs.txt"),
+               lcp=os.path.join(tmp, "lcp.txt"),
+               genome=os.path.join(tmp, "genome2.fa"))
+    cnt: Counter = Counter()
+    n_reads = 0
+    with open(reads) as f, open(out["reads_n"], "w") as fn:
+        for line in f:
+            if line.startswith(">"):
+                fn.write(line)
+                continue
+            s = bytearray(line.rstrip("\n").encode())
+            if n_reads % 3 == 0:
+                for j in rng.integers(0, len(s), 4):
+                    s[j] = ord("N")
+            fn.write(s.decode() + "\n")
+            if n_reads < 12:
+                h = re.sub(r"(.)\1+", r"\1", line.strip())
+                for j in range(len(h) - 13):
+                    cnt[h[j : j + 14]] += 1
+            n_reads += 1
+    with open(out["lmers"], "w") as f:
+        for i, lm in enumerate(sorted(cnt)):
+            f.write(f"{lm} {10 ** 6 if i % 7 == 0 else 50}\n")
+    for key, n in (("uhs", 50_000), ("lcp", 2_000)):
+        lm = np.frombuffer(b"ACGT", dtype=np.uint8)[
+            rng.integers(0, 4, (n, 14))]
+        with open(out[key], "wb") as f:
+            f.write(b"\n".join(r.tobytes() for r in lm) + b"\n")
+    with open(out["genome"], "wb") as f:
+        for name, n in ((b"chrA", 1_300_000), (b"chrB", 200_000)):
+            f.write(b">" + name + b"\n" + np.frombuffer(
+                b"ACGT", dtype=np.uint8)[rng.integers(0, 4, n)].tobytes()
+                + b"\n")
+    out["lmer_keys"] = len(cnt)
+    return out
+
+
+def scheme_parity(tmp: str, Params, np) -> dict:
+    """Every minimizer scheme and streaming flag on the parity corpus:
+    cuda = cpu in .gfa bytes and .sequences records (and .ec_data /
+    .read_stats bytes), and --engine device = --engine host."""
+    from rust_mdbg_tpu_torch.core.pipeline import assemble
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    f = write_scheme_inputs(tmp, np)
+    base = dict(k=21, l=14, density=0.003, min_kmer_abundance=2)
+    out = {"lmer_keys": f["lmer_keys"]}
+
+    # the device drivers under --syncmers: chunked raw and pre-HPC (vector
+    # mode both), the whole-run table at minabund 2 (its graph held against
+    # the chunked leg's) and, through `assemble`, at minabund 17.  The 30x
+    # parity corpus leaves no window with 17 sightings, so that leg reads a
+    # deeper corpus of its own: 120x of a 0.05 Mbp genome.  Batches of 64
+    # reads: the CPU side walks every batch column by column
+    from rust_mdbg_tpu_torch.core.pipeline import assemble_device_table
+    from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
+
+    deep = os.path.join(tmp, "parity_deep.fa")
+    write_synthetic_reads(deep, genome_mbp=0.05, coverage=120,
+                          read_len=10_000, error_rate=0.003, seed=7)
+    for leg, extra in (
+            ("syncmers_raw", {}),
+            ("syncmers_prehpc", dict(reads_already_hpc=True)),
+            ("syncmers_table", dict(batch_reads=64)),
+            ("syncmers_table17", dict(min_kmer_abundance=17,
+                                      batch_reads=64))):
+        t0 = time.perf_counter()
+        p = Params(**{**base, **SYNC_KW, **extra})
+        run = assemble_device_table if leg == "syncmers_table" else assemble
+        reads = deep if leg == "syncmers_table17" else f["reads"]
+        before = (kernels.syncmer_incumbent.launches,
+                  kernels.nthash_select.launches)
+        sg = run(reads, p, os.path.join(tmp, f"{leg}_g"), device=DEVICE)
+        launched = kernels.syncmer_incumbent.launches - before[0]
+        if launched <= 0 or kernels.nthash_select.launches != before[1]:
+            raise SystemExit(f"scheme parity ({leg}): syncmer_incumbent "
+                             f"launched {launched} times")
+        run(reads, p, os.path.join(tmp, f"{leg}_c"), device="cpu")
+        _same_outputs(f"scheme parity ({leg}), cuda vs cpu",
+                      os.path.join(tmp, f"{leg}_g"),
+                      os.path.join(tmp, f"{leg}_c"))
+        if ("phase1_nodes" in sg) != leg.startswith("syncmers_table") \
+                or sg["nb_nodes"] <= 0 or sg["nb_edges"] <= 0:
+            raise SystemExit(f"scheme parity ({leg}): wrong driver or empty "
+                             f"graph: {sg}")
+        if leg == "syncmers_table" and gfa_signature(
+                os.path.join(tmp, f"{leg}_g")) != gfa_signature(
+                os.path.join(tmp, "syncmers_raw_g")):
+            raise SystemExit("scheme parity (syncmers_table): node multiset "
+                             "or edge count differs from the chunked leg's")
+        out[leg] = dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
+                        windows=sg["nb_windows"], kernel_launches=launched)
+        if leg == "syncmers_raw":
+            # the numpy host engine (streaming) writes the same graph
+            assemble(f["reads"], p.replace(engine="host"),
+                     os.path.join(tmp, f"{leg}_h"), device=DEVICE)
+            _same_outputs(f"scheme parity ({leg}), device vs host engine",
+                          os.path.join(tmp, f"{leg}_g"),
+                          os.path.join(tmp, f"{leg}_h"))
+            out[leg]["same_as_host_engine"] = True
+        out[leg]["seconds"] = time.perf_counter() - t0
+        print(f"scheme parity leg {leg}: {json.dumps(out[leg])}", flush=True)
+
+    # the streaming engine
+    legs = {
+        "lmer_counts": (dict(has_lmer_counts=True),
+                        dict(_lmer_counts_path=f["lmers"]), f["reads"]),
+        "uhs": (dict(uhs=True), dict(_uhs_path=f["uhs"]), f["reads"]),
+        "uhs_bf": (dict(uhs=True, use_bf=True, bloom_log2_bits=26),
+                   dict(_uhs_path=f["uhs"]), f["reads"]),
+        "lcp": (dict(lcp=True), dict(_lcp_path=f["lcp"]), f["reads_n"]),
+        # a genome keeps every k-min-mer: --minabund 1
+        "reference": (dict(reference=True, min_kmer_abundance=1,
+                           batch_reads=2), {}, f["genome"]),
+    }
+    for leg, (extra, paths, reads) in legs.items():
+        t0 = time.perf_counter()
+        st = {}
+        for tag, engine, dev in (("g", "device", DEVICE), ("c", "device", "cpu"),
+                                 ("h", "host", DEVICE)):
+            p = _set_paths(Params(**{**base, **extra, "engine": engine}),
+                           **paths)
+            before = kernels.nthash_select.launches
+            st[tag] = assemble(reads, p, os.path.join(tmp, f"{leg}_{tag}"),
+                               device=dev)
+            if tag == "g":
+                launched = kernels.nthash_select.launches - before
+        for tag, what in (("c", "cuda vs cpu"),
+                          ("h", "device vs host engine")):
+            _same_outputs(f"scheme parity ({leg}), {what}",
+                          os.path.join(tmp, f"{leg}_g"),
+                          os.path.join(tmp, f"{leg}_{tag}"))
+            if leg == "reference" and \
+                    open(os.path.join(tmp, f"{leg}_g.ec_data"), "rb").read() \
+                    != open(os.path.join(tmp, f"{leg}_{tag}.ec_data"),
+                            "rb").read():
+                raise SystemExit(f"scheme parity ({leg}), {what}: .ec_data "
+                                 "differs")
+        sg = st["g"]
+        if launched <= 0 or sg["nb_nodes"] <= 0 or sg["nb_edges"] <= 0:
+            raise SystemExit(f"scheme parity ({leg}): {launched} launches, "
+                             f"{sg}")
+        if leg == "reference" and not (
+                sg["tiled_rows"] == st["c"]["tiled_rows"] == 2
+                and sg["tile_host_rows"] == 0):
+            raise SystemExit(f"scheme parity ({leg}): the tiler took "
+                             f"{sg['tiled_rows']} rows, "
+                             f"{sg['tile_host_rows']} on the host")
+        if sg["host_rows"] > HOST_ROW_SHARE * sg["nb_reads"]:
+            raise SystemExit(f"scheme parity ({leg}): {sg['host_rows']} of "
+                             f"{sg['nb_reads']} rows re-extracted on the "
+                             "host")
+        if sg["filter_fill"] != st["c"]["filter_fill"]:
+            raise SystemExit(f"scheme parity ({leg}): filter fill "
+                             f"{sg['filter_fill']} on the card, "
+                             f"{st['c']['filter_fill']} on the CPU")
+        out[leg] = dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
+                        windows=sg["nb_windows"], host_rows=sg["host_rows"],
+                        tiled_rows=sg["tiled_rows"],
+                        tile_host_rows=sg["tile_host_rows"],
+                        filter_fill=sg["filter_fill"],
+                        kernel_launches=launched,
+                        seconds=time.perf_counter() - t0)
+        print(f"scheme parity leg {leg}: {json.dumps(out[leg])}", flush=True)
+
+    # --read-stats writes beside its input: every run gets its own copy
+    t0 = time.perf_counter()
+    blobs = {}
+    for tag, engine, dev in (("g", "device", DEVICE), ("c", "device", "cpu"),
+                             ("h", "host", DEVICE)):
+        rs = os.path.join(tmp, f"stats_input_{tag}.fa")
+        shutil.copy(f["reads"], rs)
+        st = assemble(f["reads"], Params(**base, engine=engine),
+                      os.path.join(tmp, f"rs_{tag}"), read_stats_path=rs,
+                      device=dev)
+        if "nb_nodes" in st or os.path.exists(
+                os.path.join(tmp, f"rs_{tag}.gfa")):
+            raise SystemExit("scheme parity (read_stats): a GFA was written")
+        blobs[tag] = open(rs + ".read_stats", "rb").read()
+    if not (blobs["g"] == blobs["c"] == blobs["h"]) or not blobs["g"]:
+        raise SystemExit("scheme parity (read_stats): .read_stats differ")
+    out["read_stats"] = dict(bytes=len(blobs["g"]), reads=st["nb_reads"],
+                             seconds=time.perf_counter() - t0)
+    return out
+
+
+def scheme_main(tmp: str, Params, syn: dict, leg: str, np) -> dict:
+    """One of the three scheme legs over main.fa at [512, 24576] batches,
+    k = 21, l = 14: (d) --syncmers raw through assemble (the chunked
+    driver), (e) --uhs --bf through the streaming engine, (f) --reference
+    on the corpus's genome as one record (tiled extraction)."""
+    import torch
+
+    from rust_mdbg_tpu_torch.core import pipeline
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    kw = dict(k=21, l=14, density=0.003, min_kmer_abundance=2)
+    reads = os.path.join(tmp, "main.fa")
+    if leg == "syncmers":
+        p = Params(**{**kw, **SYNC_KW})
+    elif leg == "uhs_bf":
+        uhs = os.path.join(tmp, "uhs.txt")  # scheme_parity's 50,000 14-mers
+        p = _set_paths(Params(**kw, uhs=True, use_bf=True,
+                              max_read_len=24_576), _uhs_path=uhs)
+    else:
+        reads = os.path.join(tmp, "genome.fa")
+        p = Params(**{**kw, "min_kmer_abundance": 1}, reference=True,
+                   batch_reads=1)
+    prefix = os.path.join(tmp, f"scheme_{leg}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.nthash_select.launches = 0
+    kernels.syncmer_incumbent.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = pipeline.assemble(reads, p, prefix, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(nthash_select=kernels.nthash_select.launches,
+                    syncmer_incumbent=kernels.syncmer_incumbent.launches)
+    wanted = "syncmer_incumbent" if leg == "syncmers" else "nthash_select"
+    if launches[wanted] <= 0:
+        raise SystemExit(f"scheme main path ({leg}): {wanted} never "
+                         "launched")
+    (nodes, n_l) = gfa_signature(prefix)
+    n_rec = len(read_records(prefix))
+    if not (len(nodes) == st["nb_nodes"] == n_rec and n_l == st["nb_edges"]
+            and n_rec > 0 and n_l > 0):
+        raise SystemExit(f"scheme main path ({leg}): inconsistent outputs "
+                         f"S={len(nodes)} L={n_l} records={n_rec} "
+                         f"stats={st}")
+    bases = syn["genome_size"] if leg == "reference" else syn["total_bases"]
+    out = dict(
+        input_gbp=bases / 1e9, reads=st["nb_reads"], nodes=st["nb_nodes"],
+        edges=st["nb_edges"], windows=st["nb_windows"], wall_s=wall,
+        input_gbp_per_s=bases / 1e9 / wall, phases=st["phases"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        host_rows=st.get("host_rows", 0),
+        nthash_select_launches=launches["nthash_select"],
+        syncmer_incumbent_launches=launches["syncmer_incumbent"])
+    if leg == "syncmers":
+        if "nb_chunks" not in st:
+            raise SystemExit("scheme main path (syncmers): the run did not "
+                             "take the chunked driver")
+        out.update(density=p.density, s=p.s, chunks=st["nb_chunks"],
+                   minimizers_per_read=(st["nb_windows"] / st["nb_reads"]
+                                        + p.k - 1))
+    else:
+        # a leg where more than a few rows went round the card fails
+        if st["host_rows"] > HOST_ROW_SHARE * st["nb_reads"] or (
+                leg == "reference"
+                and (st["tiled_rows"] != 1 or st["tile_host_rows"])):
+            raise SystemExit(f"scheme main path ({leg}): rows taken on the "
+                             f"host: {st}")
+        out.update(filter_fill=st["filter_fill"],
+                   tiled_rows=st["tiled_rows"],
+                   tile_host_rows=st["tile_host_rows"])
+    return out
+
+
+def syncmer_breakdown(tmp: str, Params) -> dict:
+    """Device time by torch op over one [512, 24576] batch of main.fa
+    through the count-path extraction under --syncmers (what the chunked
+    driver runs per batch), under torch.profiler after a warm-up; the hand
+    kernel's share, and the busy share of the unprofiled wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rust_mdbg_tpu_torch.core.chunked import (host_feed, plan_chunks,
+                                                  to_device)
+    from rust_mdbg_tpu_torch.io.fastx_native import NativeReader
+    from rust_mdbg_tpu_torch.ops.extract import extract_count
+    from rust_mdbg_tpu_torch.ops.pack import unpack_codes
+
+    reads = os.path.join(tmp, "main.fa")
+    p = Params(k=21, l=14, min_kmer_abundance=2, **SYNC_KW)
+    plan = plan_chunks(reads, p)
+    rdr = NativeReader(reads, plan["chunk_reads"], plan["L"],
+                       mean_len_hint=plan["mean_len"])
+    try:
+        c = rdr.next_chunk()
+    finally:
+        rdr.close()
+    dev = torch.device("cuda")
+    staged, lens_d = to_device(host_feed(c.codes, c.lengths, c.n, plan),
+                               c.lengths, dev)
+    B = plan["B"]
+
+    def batch():
+        codes = (unpack_codes(staged[0][:B], staged[1][:B])
+                 if plan["packed"] else staged[0][:B])
+        return extract_count(codes, lens_d[:B], l=p.l, k=p.k,
+                             hash_bound=p.hash_bound, M=plan["M"],
+                             syncmer=(p.s, p.syncmer_hash_bound))
+
+    out = batch()
+    n_min = float((out["nw"].float().mean() + p.k - 1))
+    width = int(staged[0].shape[1] * (4 if plan["packed"] else 1))
+    del out
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    unprofiled_us = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, kernel_us = [], 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if "syncmer_incumbent" in e.name:
+            kernel_us += e.time_range.end - e.time_range.start
+    busy = 0.0
+    end = float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ops = sorted(((a.key, a.self_device_time_total, a.count)
+                  for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU
+                  and a.self_device_time_total > 0), key=lambda r: -r[1])
+    return dict(
+        shape=[B, width], M=plan["M"], w_slot=plan["w_slot"],
+        chunk_reads=plan["chunk_reads"], minimizers_per_read=n_min,
+        window_us=wall_us, unprofiled_us=unprofiled_us,
+        device_events=len(spans), busy_us=busy,
+        device_us=sum(b - a for a, b in spans),
+        busy_share_unprofiled=busy / unprofiled_us if spans else None,
+        syncmer_incumbent_us=kernel_us,
+        syncmer_incumbent_share=kernel_us / busy if busy else None,
+        top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
+
+
 def _short(kernel: str) -> str:
     for junk in ("void ", "at::native::", "(anonymous namespace)::",
                  "at::cuda::detail::"):
@@ -715,7 +1184,8 @@ def main() -> int:
         print(f"# nvcc {name} ({sec:.3f} s):\n{log.strip()}", flush=True)
 
     hash_bound = Params(k=21, l=14, density=0.003).hash_bound
-    rows = [check_nthash_select(torch, np, hash_bound)]
+    rows = [check_nthash_select(torch, np, hash_bound),
+            check_syncmer_incumbent(torch, np)]
     for r in rows:
         print(f"kernel check: {json.dumps(r)}", flush=True)
         if r["mismatches"]:
@@ -758,14 +1228,34 @@ def main() -> int:
                   flush=True)
         fb = finalize_breakdown(tmp, Params)
         print(f"finalize breakdown: {json.dumps(fb)}", flush=True)
+
+        t0 = time.perf_counter()
+        spar = scheme_parity(tmp, Params, np)
+        spar["seconds"] = time.perf_counter() - t0
+        print(f"scheme parity: {json.dumps(spar)}", flush=True)
+        scheme = {}
+        for leg in ("syncmers", "uhs_bf", "reference"):
+            scheme[leg] = scheme_main(tmp, Params, syn, leg, np)
+            print(f"scheme main path ({leg}): {json.dumps(scheme[leg])}",
+                  flush=True)
+        sb = syncmer_breakdown(tmp, Params)
+        print(f"syncmer breakdown: {json.dumps(sb)}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     rows[0]["launches_by_leg"] = dict(
         raw=mp["nthash_select_launches"], prehpc=hp["nthash_select_launches"],
         **{f"whole_{leg}": w["nthash_select_launches"]
-           for leg, w in whole.items()})
-    rows[0]["launches"] = sum(rows[0]["launches_by_leg"].values())
+           for leg, w in whole.items()},
+        **{f"scheme_{leg}": w["nthash_select_launches"]
+           for leg, w in scheme.items()})
+    rows[1]["launches_by_leg"] = {
+        f"scheme_{leg}": w["syncmer_incumbent_launches"]
+        for leg, w in scheme.items()}
+    for r in rows:
+        r["launches"] = sum(r["launches_by_leg"].values())
+        if r["launches"] <= 0:
+            raise SystemExit(f"{r['name']}: no launch on any main-path leg")
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

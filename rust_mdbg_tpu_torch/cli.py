@@ -2,14 +2,18 @@
 
     python -m rust_mdbg_tpu_torch reads.fa -k K -l L --density D \
         --minabund N --prefix P [--skiphpc] [--bf [--bf-bits N]]
+        [--syncmers [-s S]] [--lmer-counts F] [--uhs F] [--lcp F]
+        [--reference] [--read-stats F] [--engine device|host]
         [--device cuda|cpu]
 
-The run goes through core/pipeline.assemble, which takes the chunked driver
-for --minabund up to 16 and the whole-run device path above it, as
-`python -m rust_mdbg_tpu` does.  The flags of the JAX package's CLI that
-select paths this port does not run yet are accepted and rejected with a
-"not ported yet" error naming ROADMAP.md, so a command line written for
-`python -m rust_mdbg_tpu` fails clearly instead of running something else.
+The run goes through core/pipeline.assemble, which routes as
+`python -m rust_mdbg_tpu` does: density and syncmer runs to the chunked
+driver (--minabund up to 16) or the whole-run device path (above it),
+everything else to the streaming engine.  The flags and subcommands of the
+JAX package's CLI that select paths this port does not run yet are
+accepted and rejected with a "not ported yet" error naming ROADMAP.md, so
+a command line written for `python -m rust_mdbg_tpu` fails clearly instead
+of running something else.
 """
 
 from __future__ import annotations
@@ -23,12 +27,23 @@ from .params import Params, autodetect_k_l_d, default_prefix
 
 #: flags of the JAX package's CLI whose paths are later slices
 _NOT_PORTED = {
-    "syncmers": "--syncmers", "lmer_counts": "--lmer-counts",
-    "uhs": "--uhs", "lcp": "--lcp", "error_correct": "--error-correct",
+    "error_correct": "--error-correct",
     "restart_from_postcor": "--restart-from-postcor",
-    "reference": "--reference", "read_stats": "--read-stats",
     "mesh": "--mesh", "multihost": "--multihost",
 }
+
+#: subcommands of the JAX package's CLI (its tools/), later slices too
+_TOOLS = (
+    "to-basespace", "gfa-asm", "magic-simplify", "multik", "gfa2fasta",
+    "break-loops", "simplify-meta", "gfa-complete", "hpc-compress",
+    "gfa-strip", "extreme-simplify", "synth-reads", "ec-scale", "quality-n50",
+)
+
+
+def _engine(name: str) -> str:
+    """An --engine value; the JAX package's three names for its device
+    engine are one engine here."""
+    return "device" if name in ("auto", "pallas") else name
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Minimizer-space de Bruijn graph (mdBG) assembler, "
                     "PyTorch/CUDA port.")
     p.add_argument("reads", help="input FASTA/FASTQ (.gz/.lz4 ok)")
+    p.add_argument("--debug", action="store_true")
     p.add_argument("-p", "--prefix", default=None)
     p.add_argument("-k", type=int, default=None, help="k-min-mer length")
     p.add_argument("-l", type=int, default=None, help="minimizer length")
@@ -51,17 +67,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "sighting on")
     p.add_argument("--bf-bits", type=int, default=32,
                    help="log2 Bloom filter bits for --bf (default 32)")
+    p.add_argument("--reference", action="store_true")
+    p.add_argument("--read-stats", default=None)
+    p.add_argument("--syncmers", action="store_true")
+    p.add_argument("-s", type=int, default=None,
+                   help="syncmer substring length")
+    p.add_argument("--lmer-counts", default=None)
+    p.add_argument("--lmer-counts-min", type=int, default=None)
+    p.add_argument("--lmer-counts-max", type=int, default=None)
+    p.add_argument("--uhs", default=None, help="universal k-mer file")
+    p.add_argument("--lcp", default=None, help="core substring file")
+    p.add_argument("--engine", default="device", type=_engine,
+                   choices=["device", "host"],
+                   help="extraction engine: the device's, or the numpy host "
+                        "engine (the JAX package's auto and pallas are read "
+                        "as device)")
     p.add_argument("--batch-reads", type=int, default=512)
     p.add_argument("--max-read-len", type=int, default=0)
     p.add_argument("--chunk-reads", type=int, default=0,
                    help="reads per device chunk (0 = auto by input size)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain torch versions)")
-    for dest, _ in _NOT_PORTED.items():
+    for dest in _NOT_PORTED:
         flag = "--" + dest.replace("_", "-")
-        if dest in ("lmer_counts", "uhs", "lcp", "read_stats"):
-            p.add_argument(flag, default=None, help=argparse.SUPPRESS)
-        elif dest == "mesh":
+        if dest == "mesh":
             p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
         else:
             p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -90,25 +119,55 @@ def params_from_args(args) -> tuple[Params, str]:
         presimp=args.presimp, no_basespace=bool(args.no_basespace),
         reads_already_hpc=bool(args.skiphpc),
         use_bf=bool(args.bf), bloom_log2_bits=args.bf_bits,
+        reference=bool(args.reference),
+        use_syncmers=bool(args.syncmers),
+        s=args.s if args.s is not None else 4,
+        has_lmer_counts=args.lmer_counts is not None,
+        lmer_counts_min=(args.lmer_counts_min
+                         if args.lmer_counts_min is not None else 2),
+        lmer_counts_max=(args.lmer_counts_max
+                         if args.lmer_counts_max is not None else 100000),
+        uhs=args.uhs is not None, lcp=args.lcp is not None,
+        debug=bool(args.debug),
+        engine=args.engine,
         batch_reads=args.batch_reads, max_read_len=args.max_read_len,
         chunk_reads=args.chunk_reads)
+    if args.lmer_counts is not None:
+        object.__setattr__(params, "_lmer_counts_path", args.lmer_counts)
+    if args.uhs is not None:
+        object.__setattr__(params, "_uhs_path", args.uhs)
+    if args.lcp is not None:
+        object.__setattr__(params, "_lcp_path", args.lcp)
     prefix = args.prefix if args.prefix is not None else default_prefix(params)
     return params, prefix
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in _TOOLS:
+        raise SystemExit(
+            f"error: {argv[0]} is not ported yet (see ROADMAP.md)")
     args = build_parser().parse_args(argv)
     if not os.path.exists(args.reads):
         print(f"error: input reads file not found: {args.reads}",
               file=sys.stderr)
         return 2
+    for attr, label in (("uhs", "--uhs"), ("lcp", "--lcp")):
+        path = getattr(args, attr, None)
+        if path and not os.path.exists(path):
+            print(f"error: {label} file not found: {path}", file=sys.stderr)
+            return 2
     params, prefix = params_from_args(args)
     from .core.pipeline import assemble
     from .utils.timing import max_rss_bytes
 
     t0 = time.time()
-    stats = assemble(args.reads, params, prefix, device=args.device)
+    stats = assemble(args.reads, params, prefix,
+                     read_stats_path=args.read_stats, device=args.device)
     print(f"Number of reads: {stats.get('nb_reads', 0)}")
+    if args.read_stats:
+        print("Read stats written, exiting.")
+        return 0
     print(f"Number of mdBG nodes: {stats.get('nb_nodes', 0)}")
     print(f"Number of mdBG edges: {stats.get('nb_edges', 0)}")
     if params.presimp > 0.0:

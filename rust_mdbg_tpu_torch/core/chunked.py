@@ -1,9 +1,10 @@
 """Chunked construction: device reduction per chunk, native C++ global merge.
 
 Counterpart of the JAX package's `core/chunked.assemble_device_chunked`
-(density scheme, --minabund up to MAX_CHUNK_SLOTS; core/pipeline.assemble
-sends larger ones to the whole-run path), in vector mode for raw reads and
-in recompute mode for pre-HPC'd ones.  With --bf the device construct does
+(density and syncmer schemes, --minabund up to MAX_CHUNK_SLOTS;
+core/pipeline.assemble sends larger ones to the whole-run path), in
+recompute mode for pre-HPC'd reads under the density scheme and in vector
+mode for everything else.  With --bf the device construct does
 not screen: the Bloom filter is the host merge's (nt_merge_chunk marks a
 key's first global sighting and counts from the second).  The input streams
 in fixed-size chunks:
@@ -92,15 +93,19 @@ def chunked_eligible(params: Params) -> bool:
 def check_ported(params: Params):
     """Raise NotPortedError for Params that select a path the port does not
     run yet."""
-    if getattr(params, "seq_ref_cuts", False):
-        raise NotPortedError("reference-cut spans")
-    if params.use_syncmers or params.uhs or params.lcp \
-            or params.has_lmer_counts:
-        raise NotPortedError("minimizer schemes other than density")
     if params.error_correct:
         raise NotPortedError("error correction")
-    if params.reference:
-        raise NotPortedError("--reference")
+
+
+def check_device_driver(params: Params):
+    """The device drivers (chunked and whole-run) count density and syncmer
+    minimizers of reads; everything else is the streaming engine's."""
+    check_ported(params)
+    if params.uhs or params.lcp or params.has_lmer_counts \
+            or params.reference:
+        raise ValueError(
+            "--uhs, --lcp, --lmer-counts and --reference run through the "
+            "streaming engine (core/pipeline.assemble)")
 
 
 def plan_chunks(reads_path: str, params: Params, chunk_reads: int = 0) -> dict:
@@ -217,7 +222,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     from ..ops.sort_count import CLIPPED_MSG
 
     dev = resolve_device(device)
-    check_ported(params)
+    check_device_driver(params)
     if not chunked_eligible(params):
         raise RuntimeError(
             f"chunked counting carries at most {MAX_CHUNK_SLOTS} occurrence "

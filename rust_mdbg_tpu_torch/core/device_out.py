@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..io.sequences import write_records_native
+from ..ops.extract import _unpack_ext
 from .graph import IncrementalGFA, _overlap_keys
 
 
@@ -163,13 +164,6 @@ class LazyNodes:
             self._stage_vec()
         for row0, copy in self._chunks:
             yield row0, copy.numpy()
-
-
-def _unpack_ext(extpack: np.ndarray):
-    """The exact-cut column of a 6-column meta: (end_ext - end,
-    d_last_e - d_last)."""
-    return ((extpack >> 16).astype(np.int64),
-            (extpack & 0xFFFF).astype(np.int64) - 0x8000)
 
 
 def node_offsets(params, meta: np.ndarray, row_start_offsets: np.ndarray):

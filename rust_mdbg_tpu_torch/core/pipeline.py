@@ -1,15 +1,20 @@
-"""The assembly entry point and the whole-run device driver.
+"""The assembly entry point, the streaming engine and the whole-run driver.
 
-Counterpart of the device half of the JAX package's `core/pipeline.py`.
-`assemble` routes a run as `python -m rust_mdbg_tpu` does: to the chunked
-driver (core/chunked, bounded memory at any input size) whenever
-`chunked_eligible`, and to `assemble_device_table` for --minabund beyond
-the chunk-slot ceiling, where the crossing occurrence is selected on the
-device by one reduction over every window of the run.
+Counterpart of the JAX package's `core/pipeline.py`.  `assemble` routes a
+run as `python -m rust_mdbg_tpu` does.  Density and syncmer runs go to the
+device drivers: the chunked driver (core/chunked, bounded memory at any
+input size) whenever `chunked_eligible`, and `assemble_device_table` for
+--minabund beyond the chunk-slot ceiling, where the crossing occurrence is
+selected on the device by one reduction over every window of the run.
+Everything else (--lmer-counts, --uhs, --lcp, --reference, --read-stats,
+--engine host) is the streaming engine: batches of reads through an
+extraction engine (ops/extract.DeviceExtractor on the device, or the numpy
+host engine of core/extract), the native node table, .sequences records at
+the abundance-crossing occurrence, the abundance filter, the GFA.
 
-The JAX `assemble` goes on to its host streaming engine when a device run
-raises.  That engine is not ported and the port hides no device failure:
-a path outside the port raises NotPortedError, anything else its own error.
+The JAX `assemble` drops to its host engine when the device engine cannot
+be made, and to its streaming half when a device driver raises.  The port
+hides no device failure: it raises.
 """
 
 from __future__ import annotations
@@ -22,13 +27,18 @@ import numpy as np
 import torch
 
 from ..io import fastx
-from ..io.sequences import remove_stale
+from ..io.ec_data import EcWriter
+from ..io.sequences import SequencesWriter, remove_stale
 from ..params import Params, staging_width
+from ..utils.seq import revcomp
 from ..utils.timing import PhaseTimer
-from .chunked import (NotPortedError, assemble_device_chunked, check_ported,
-                      chunked_eligible, resolve_device)
+from .chunked import (assemble_device_chunked, check_device_driver,
+                      check_ported, chunked_eligible, resolve_device)
 from .device_out import (PhasedEmitter, emit_device_outputs,
                          minimizer_recompute_ok)
+from .extract import extract_windows_host
+from .graph import build_gfa
+from .nodetable import NodeTable
 
 #: batches per staged chunk of the whole-run driver
 CHUNK_BATCHES = 16
@@ -46,7 +56,7 @@ CUDA_BUDGET_SHARE = 0.2
 
 def _device_table_eligible(params: Params, read_stats_path) -> bool:
     return (
-        params.engine in ("auto", "device", "pallas")
+        params.engine != "host"
         and not params.error_correct
         and not params.reference
         and not (params.uhs or params.lcp or params.has_lmer_counts)
@@ -54,26 +64,222 @@ def _device_table_eligible(params: Params, read_stats_path) -> bool:
     )
 
 
+def _pick_engine(params: Params, dev: torch.device, minimizer_to_int=None,
+                 uhs_filter=None, lcp_filter=None):
+    """The extraction engine of a streaming run: the DeviceExtractor on
+    `dev`, or None for --engine host (the numpy engine of core/extract)."""
+    if params.engine == "host":
+        return None
+    from ..ops.extract import make_device_extractor
+
+    return make_device_extractor(params, dev, minimizer_to_int, uhs_filter,
+                                 lcp_filter)
+
+
 def assemble(reads_path: str, params: Params, prefix: str,
              read_stats_path: str | None = None, device=None,
              mem_budget: int | None = None) -> dict:
     """Run the single-k assembly on `device` (CUDA unless named); writes
-    prefix.gfa and the prefix.*.sequences shards, returns the stats dict."""
+    prefix.gfa and the prefix.*.sequences shards, returns the stats dict.
+
+    With read_stats_path the run mirrors the reference's read_stats mode
+    (main.rs:938-1004): after the abundance filter it writes the per-read
+    k-min-mer abundances of that file's reads to `<file>.read_stats` and
+    returns WITHOUT writing a GFA."""
     dev = resolve_device(device)
     check_ported(params)
-    if read_stats_path is not None:
-        raise NotPortedError("--read-stats")
-    if not _device_table_eligible(params, read_stats_path):
-        raise NotPortedError(f"--engine {params.engine} (the host streaming "
-                             "engine)")
+    if params.engine not in ("device", "host"):
+        raise ValueError(f"engine {params.engine!r}: device or host")
     timer = PhaseTimer()
     stats: dict = {}
-    if chunked_eligible(params):
-        return assemble_device_chunked(reads_path, params, prefix, timer,
-                                       stats, chunk_reads=params.chunk_reads,
-                                       device=dev)
-    return assemble_device_table(reads_path, params, prefix, timer, stats,
-                                 device=dev, mem_budget=mem_budget)
+    if _device_table_eligible(params, read_stats_path):
+        if chunked_eligible(params):
+            return assemble_device_chunked(reads_path, params, prefix, timer,
+                                           stats, chunk_reads=params.chunk_reads,
+                                           device=dev)
+        return assemble_device_table(reads_path, params, prefix, timer, stats,
+                                     device=dev, mem_budget=mem_budget)
+    return assemble_streaming(reads_path, params, prefix, read_stats_path,
+                              dev, timer, stats)
+
+
+def assemble_streaming(reads_path: str, params: Params, prefix: str,
+                       read_stats_path: str | None, dev: torch.device,
+                       timer: PhaseTimer, stats: dict) -> dict:
+    """The streaming engine: fixed-shape read batches through the
+    extraction engine and the native node table.  The stats carry the
+    extractor's counts (`host_rows`, `tiled_rows`, `tile_host_rows`) and
+    its filter's fill (`filter_fill`: set Bloom bits, or the exact set's
+    size)."""
+    # --- parameter-dependent preparation ---------------------------------
+    minimizer_to_int = None
+    if params.has_lmer_counts:
+        from ..ops.minimizers import minimizers_preparation
+
+        lmer_counts = {}
+        if getattr(params, "_lmer_counts_path", None):
+            lmer_counts = load_lmer_counts(params._lmer_counts_path)
+        minimizer_to_int, _int_to_minimizer, _ = minimizers_preparation(
+            params, lmer_counts)
+
+    uhs_filter = lcp_filter = None
+    if params.uhs and getattr(params, "_uhs_path", None):
+        from ..models.schemes import uhs_preparation
+
+        uhs_filter = uhs_preparation(params, params._uhs_path)
+    if params.lcp and getattr(params, "_lcp_path", None):
+        from ..models.schemes import lcp_preparation
+
+        lcp_filter = lcp_preparation(params, params._lcp_path)
+
+    remove_stale(prefix)
+
+    table = NodeTable(
+        min_abundance=params.min_kmer_abundance,
+        use_bf=params.use_bf,
+        bloom_log2_bits=params.bloom_log2_bits,
+        keep_all=params.reference,
+    )
+
+    with timer.phase("compile"):
+        if dev.type == "cuda" and params.engine != "host":
+            from ..ops.kernels import build_all
+
+            build_all()
+    device_extract = _pick_engine(params, dev, minimizer_to_int, uhs_filter,
+                                  lcp_filter)
+
+    seq_writer = None
+    ec_writer = EcWriter(prefix) if params.reference else None
+
+    max_len = params.max_read_len
+    if max_len <= 0:
+        _mean_len, mx = fastx.read_first_n_reads(reads_path, 100)
+        max_len = max(1024, 2 * mx)
+    nb_reads = 0
+    nb_windows = 0
+
+    use_compact = device_extract is not None and ec_writer is None
+
+    with timer.phase("extract+count"):
+        for batch in fastx.batches(reads_path, params.batch_reads, max_len):
+            if use_compact:
+                wb = device_extract.extract_compact(batch)
+                get_vecs = wb.vecs_for
+            elif device_extract is not None:
+                wb = device_extract(batch)
+                get_vecs = lambda idx: wb.vecs[idx]  # noqa: E731
+            else:
+                wb = extract_windows_host(batch, params, minimizer_to_int,
+                                          uhs_filter, lcp_filter)
+                get_vecs = lambda idx: wb.vecs[idx]  # noqa: E731
+            nb_reads += batch.n_reads
+            nb_windows += wb.n_windows
+            if params.debug and getattr(wb, "minimizers", None):
+                # per-read minimizer-space representation (the reference's
+                # debug display, main.rs:802-807)
+                for row, m in enumerate(wb.minimizers):
+                    if m is not None and batch.ids[row]:
+                        print(batch.ids[row],
+                              " ".join(str(int(x)) for x in m[1]))
+            flags, index = table.add_batch(
+                wb.key_lo, wb.key_hi, wb.seqlen, wb.shift0, wb.shift1
+            )
+            # record .sequences lines for crossing occurrences
+            hit = np.nonzero(flags)[0]
+            if hit.size:
+                vecs = get_vecs(hit)
+                for vi, j in enumerate(hit):
+                    table.vectors[int(index[j])] = vecs[vi].copy()
+                if not params.no_basespace:
+                    if seq_writer is None:
+                        seq_writer = SequencesWriter(prefix, 0, params.k,
+                                                     params.l)
+                    for vi, j in enumerate(hit):
+                        row = int(wb.read_row[j])
+                        raw = batch.raw[row]
+                        s = raw[int(wb.start[j]) : int(wb.end[j])].decode()
+                        if wb.reversed_[j]:
+                            s = revcomp(s)
+                        seq_writer.record(
+                            int(index[j]), vecs[vi], s, "*",
+                            (int(wb.seq_shift0[j]), int(wb.seq_shift1[j])),
+                        )
+
+            if ec_writer is not None:
+                for row in range(batch.codes.shape[0]):
+                    m = wb.minimizers[row] if row < len(wb.minimizers) else None
+                    if m is None:
+                        continue
+                    pos, hashes = m
+                    if len(hashes) < params.n:
+                        continue
+                    seq_str = batch.raw[row].decode()
+                    seq_str = seq_str.replace("\n", "").replace("\r", "")
+                    ec_writer.record(batch.ids[row], seq_str, hashes, [], pos)
+
+    if ec_writer is not None:
+        ec_writer.flush()
+    if seq_writer is not None:
+        seq_writer.close()
+    stats["nb_reads"] = nb_reads
+    stats["nb_windows"] = nb_windows
+    if device_extract is not None:
+        stats.update(device_extract.stats)
+        stats["filter_fill"] = device_extract.filter_fill()
+
+    # --- abundance filter -----------------------------------------------
+    stats["nb_nodes_prefilter"] = len(table)
+    if params.min_kmer_abundance > 1:
+        table.retain(params.min_kmer_abundance)
+
+    if read_stats_path is not None:
+        with timer.phase("read-stats"):
+            run_read_stats(reads_path, read_stats_path, params, table,
+                           f"{read_stats_path}.read_stats")
+        stats["phases"] = timer.report()
+        return stats
+
+    with timer.phase("gfa"):
+        nodes = table.dump()
+        g = build_gfa(f"{prefix}.gfa", nodes, table.vectors,
+                      presimp=params.presimp)
+    stats.update(g)
+    stats["phases"] = timer.report()
+    return stats
+
+
+def load_lmer_counts(path: str) -> dict[str, int]:
+    """Parse k-mer-counter output: `<lmer> <count>` lines, canonicalized
+    (main.rs:546-566)."""
+    counts: dict[str, int] = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            lmer = parts[0]
+            lrev = revcomp(lmer)
+            counts[min(lmer, lrev)] = int(parts[1])
+    return counts
+
+
+def run_read_stats(reads_path: str, stats_path: str, params: Params,
+                   table: NodeTable, out_path: str):
+    """Second input pass writing per-read k-min-mer abundances
+    (read_stats mode, main.rs:938-1004 + read_stats.rs)."""
+    max_len = max(1024, 2 * fastx.read_first_n_reads(stats_path, 100)[1])
+    with open(out_path, "w") as out:
+        for batch in fastx.batches(stats_path, params.batch_reads, max_len,
+                                   keep_raw=False):
+            wb = extract_windows_host(batch, params)
+            ab = table.lookup_batch(wb.key_lo, wb.key_hi)
+            for row in range(batch.codes.shape[0]):
+                if batch.lengths[row] == 0:
+                    continue
+                sel = wb.read_row == row
+                counts = "".join(f"{int(a)} " for a in ab[sel])
+                out.write(f"{batch.ids[row]}: {counts}\n")
 
 
 def whole_run_budget(dev: torch.device) -> int:
@@ -186,7 +392,7 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
     from .fastx_feed import stream_chunks
 
     dev = resolve_device(device)
-    check_ported(params)
+    check_device_driver(params)
     timer = timer or PhaseTimer()
     stats = stats if stats is not None else {}
 
@@ -197,9 +403,10 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
         if chunked_eligible(params):
             return assemble_device_chunked(reads_path, params, prefix, timer,
                                            stats, device=dev)
-        raise NotPortedError(
-            f"an input over the whole-run device budget ({mem_budget} B) at "
-            "--minabund beyond the chunk slots (the host streaming engine)")
+        raise RuntimeError(
+            f"input over the whole-run device budget ({mem_budget} B) at "
+            "--minabund beyond the chunk slots; use --engine host for this "
+            "--minabund")
 
     with timer.phase("compile"):
         if dev.type == "cuda":

@@ -36,17 +36,22 @@ def write_synthetic_reads(path: str, genome_mbp: float = 20,
                           coverage: float = 52, read_len: int = 24000,
                           error_rate: float = 0.0005, seed: int = 0,
                           block_reads: int = 2048,
-                          repeat_frac: float = 0.0) -> dict:
+                          repeat_frac: float = 0.0,
+                          genome_out: str | None = None) -> dict:
     """Write a synthetic FASTA; returns {n_reads, total_bases, genome_size}.
 
     repeat_frac > 0 makes that share of the genome segmental duplications
-    (segdup_genome)."""
+    (segdup_genome).  genome_out also writes the genome itself, as one FASTA
+    record (an input for --reference)."""
     rng = np.random.default_rng(seed)
     G = int(genome_mbp * 1_000_000)
     if repeat_frac > 0:
         genome = segdup_genome(rng, G, repeat_frac)
     else:
         genome = rng.integers(0, 4, G, dtype=np.int64).astype(np.uint8)
+    if genome_out is not None:
+        with open(genome_out, "wb") as f:
+            f.write(b">genome\n" + CODE_BASE[genome].tobytes() + b"\n")
     n_reads = int(G * coverage) // read_len
     total = 0
     with open(path, "wb", buffering=1 << 22) as f:

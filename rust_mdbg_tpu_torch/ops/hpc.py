@@ -9,7 +9,54 @@ shifted compare, and compaction is a row prefix sum plus one scatter.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def hpc_mask_np(codes: np.ndarray) -> np.ndarray:
+    """Boolean keep-mask over a 1-D base-code array."""
+    n = codes.shape[0]
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    keep = np.empty(n, dtype=bool)
+    keep[0] = True
+    keep[1:] = codes[1:] != codes[:-1]
+    keep |= codes == 5  # non-HPC characters never compress
+    return keep
+
+
+def encode_rle_np(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(hpc_codes, pos_map): compacted codes + raw index of each kept char."""
+    keep = hpc_mask_np(codes)
+    pos = np.nonzero(keep)[0]
+    return codes[pos], pos
+
+
+def extent_ends_np(codes: np.ndarray, pos: np.ndarray, l: int,
+                   already_hpc: bool = False) -> np.ndarray:
+    """Raw END of the full HPC extent of each minimizer l-mer.
+
+    `pos` holds raw-sequence starts of selected l-mers (HPC run starts, as
+    extract_density_np returns).  The l-mer covers l HPC bases; its raw
+    extent ends at the raw start of the NEXT HPC base (= the end of the last
+    base's homopolymer run), or at the raw read end when the run reaches it.
+
+    This is the datum the reference's span cut `minimizers_pos[i+k-1] + l`
+    (main.rs:778) approximates: +l truncates mid-run whenever the l-mer
+    contains homopolymers, which makes to_basespace junctions inexact on raw
+    (non-pre-HPC'd) inputs when adjacent nodes were recorded in different
+    orientations.  Recording full-extent spans (and end-distance shifts)
+    makes the cut rule exact by construction; on already-HPC'd inputs every
+    run has length 1, so extent == l and this reduces to pos + l.
+    """
+    pos = np.asarray(pos, dtype=np.int64)
+    if already_hpc:
+        return pos + l
+    _, pos_map = encode_rle_np(codes)
+    ext_map = np.concatenate(
+        [pos_map, np.asarray([codes.shape[0]], dtype=pos_map.dtype)])
+    hpc_idx = np.searchsorted(pos_map, pos)
+    return ext_map[np.minimum(hpc_idx + l, ext_map.shape[0] - 1)]
 
 
 def hpc(codes: torch.Tensor, lengths: torch.Tensor):

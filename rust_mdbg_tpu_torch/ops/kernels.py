@@ -30,7 +30,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 
 #: kernel name -> CUDA source file under csrc/
-SOURCES = {"nthash_select": "nthash_select.cu"}
+SOURCES = {"nthash_select": "nthash_select.cu",
+           "syncmer_incumbent": "syncmer_incumbent.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -92,6 +93,9 @@ _ENTRY_POINTS = {
     "nthash_select": {
         "nthash_select_launch":
             [_P] * 4 + [_I] * 3 + [ctypes.c_ulonglong, _P],
+    },
+    "syncmer_incumbent": {
+        "syncmer_incumbent_launch": [_P] * 5 + [_I] * 2 + [_P],
     },
 }
 
@@ -161,3 +165,60 @@ def nthash_select(codes: torch.Tensor, l: int, hash_bound: int,
 
 
 nthash_select.launches = 0
+
+
+# --- syncmer_incumbent --------------------------------------------------------
+
+#: the incumbent before the first column: below every position
+INC_START = -(1 << 30)
+
+
+def syncmer_incumbent_plain(lpos: torch.Tensor, rpos: torch.Tensor,
+                            run_start: torch.Tensor,
+                            strict_new: torch.Tensor) -> torch.Tensor:
+    """Plain torch version: column by column with a [B] carry, L steps of a
+    handful of selects each."""
+    B, L = lpos.shape
+    inc = torch.full((B,), INC_START, dtype=torch.int32, device=lpos.device)
+    out = torch.empty_like(lpos)
+    for a in range(L):
+        inc = torch.where(run_start[:, a], lpos[:, a],
+                          torch.where(strict_new[:, a] | (inc < a),
+                                      rpos[:, a], inc))
+        out[:, a] = inc
+    return out
+
+
+def syncmer_incumbent(lpos: torch.Tensor, rpos: torch.Tensor,
+                      run_start: torch.Tensor,
+                      strict_new: torch.Tensor) -> torch.Tensor:
+    """Incumbent trace of the open-syncmer sliding minimum.
+
+    lpos, rpos int32 [B, L]; run_start, strict_new bool [B, L].  Returns int32
+    [B, L] with inc[a] = run_start[a] ? lpos[a] : ((strict_new[a] or
+    inc[a-1] < a) ? rpos[a] : inc[a-1]), inc[-1] = -2^30.  CPU tensors take
+    the plain version; CUDA tensors launch csrc/syncmer_incumbent.cu."""
+    if lpos.device.type == "cpu":
+        return syncmer_incumbent_plain(lpos, rpos, run_start, strict_new)
+    _check_cuda(lpos, torch.int32, "lpos")
+    _check_cuda(rpos, torch.int32, "rpos")
+    _check_cuda(run_start, torch.bool, "run_start")
+    _check_cuda(strict_new, torch.bool, "strict_new")
+    if lpos.dim() != 2 or any(t.shape != lpos.shape or t.device != lpos.device
+                              for t in (rpos, run_start, strict_new)):
+        raise ValueError("lpos, rpos, run_start, strict_new must share one "
+                         "[B, L] shape and device")
+    B, L = lpos.shape
+    inc = torch.empty((B, L), dtype=torch.int32, device=lpos.device)
+    lib = _lib("syncmer_incumbent")
+    stream = torch.cuda.current_stream(lpos.device).cuda_stream
+    err = lib.syncmer_incumbent_launch(
+        lpos.data_ptr(), rpos.data_ptr(), run_start.data_ptr(),
+        strict_new.data_ptr(), inc.data_ptr(), B, L, stream)
+    if err != 0:
+        raise RuntimeError(f"syncmer_incumbent launch failed: CUDA error {err}")
+    syncmer_incumbent.launches += 1
+    return inc
+
+
+syncmer_incumbent.launches = 0

@@ -23,6 +23,66 @@ _OFF1 = np.uint64(0xCBF29CE484222325)
 _OFF2 = np.uint64(0x9E3779B97F4A7C15)
 
 
+def window_kminmers_np(
+    pos: np.ndarray, hashes: np.ndarray, k: int, l: int,
+    pos_end: np.ndarray | None = None,
+) -> list[dict]:
+    """All k-min-mer windows for one read's selected minimizers.
+
+    Returns a list of dicts with keys: vec (canonical tuple), reversed,
+    shift (pair), seq_shift (pair), start, end, seqlen.  Empty unless
+    len(hashes) > k.
+
+    `shift`/`seqlen` are the reference's node-table semantics — raw
+    START-distances and pos[i+k-1]-pos[i]+2 (main.rs:769-778) — and feed
+    the GFA L-line overlap arithmetic unchanged.
+
+    `pos_end` (ops/hpc.extent_ends_np) switches the RECORDED span to the
+    full HPC extent of the boundary l-mers: `end` becomes pos_end[i+k-1]
+    (instead of pos[i+k-1]+l) and `seq_shift` is the cut pair written to
+    .sequences — left cut from raw START-distance of the first two
+    minimizers, right cut from raw extent-END-distance of the last two.
+    With these, to_basespace's cut rule (to_basespace.rs:213-243) lands on
+    the same genomic boundary from both sides of every junction regardless
+    of recording orientation — exact reconstruction on raw inputs, where
+    the reference's pos+l spans are a few bases off whenever a boundary
+    l-mer spans a homopolymer run.  pos_end=None keeps the reference's
+    semantics (seq_shift == shift).
+    """
+    n = hashes.shape[0]
+    if n <= k:
+        return []
+    out = []
+    for i in range(n - k + 1):
+        vec = tuple(int(x) for x in hashes[i : i + k])
+        rev = vec[::-1]
+        reversed_ = not (vec < rev)
+        canon = rev if reversed_ else vec
+        d_first = int(pos[i + 1] - pos[i])
+        d_last = int(pos[i + k - 1] - pos[i + k - 2])
+        shift = (d_last, d_first) if reversed_ else (d_first, d_last)
+        if pos_end is None:
+            end = int(pos[i + k - 1]) + l
+            seq_shift = shift
+        else:
+            end = int(pos_end[i + k - 1])
+            d_last_e = int(pos_end[i + k - 1] - pos_end[i + k - 2])
+            seq_shift = ((d_last_e, d_first) if reversed_
+                         else (d_first, d_last_e))
+        out.append(
+            dict(
+                vec=canon,
+                reversed=reversed_,
+                shift=shift,
+                seq_shift=seq_shift,
+                start=int(pos[i]),
+                end=end,
+                seqlen=int(pos[i + k - 1]) - int(pos[i]) + 2,
+            )
+        )
+    return out
+
+
 def fingerprint128_np(vecs: np.ndarray) -> np.ndarray:
     """Order-dependent 128-bit fingerprint of u64 vectors.
 

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from . import u64
-from .extract import extract_count
+from .extract import bloom_check_and_add, extract_count
 from .kminmer import canonicalize, fingerprint128, le_rev
 from .pack import unpack_codes
 
@@ -75,7 +75,8 @@ def window_slot_capacity(params, B: int, L: int, M: int) -> int:
     probability is ~1e-15 per batch; overflowing batches are counted and the
     driver raises."""
     W = M - params.k + 1
-    rate = min(1.0, params.density * 2)
+    rate = (min(1.0, params.density * 2) if not params.use_syncmers
+            else min(1.0, params.density * 1.5 + 8.0 / max(64, L)))
     expect = max(0.0, L * rate - (params.k - 1))
     sigma = math.sqrt(max(1.0, L * rate * (1 - rate)))
     w = int(expect + 8.0 * sigma / math.sqrt(max(1, B)) + 9)
@@ -104,32 +105,14 @@ def bloom_pass(key_lo, key_hi, valid, bits):
     earlier window of this batch; every valid window sets its bit.  Same bit
     indices as the host filter, so the same false positives.
 
-    Order within the batch comes from one stable sort of the valid rows' bit
-    indices: the first row of a bit keeps only if the bit was already set,
-    later rows always keep.  Only valid rows are scattered, each to its own
-    index.  The first rows of bits not yet set are added into `bits`: every
-    (word, bit) arrives at most once and the bits of a word are disjoint, so
-    the wrapping int32 add equals an or, in any order.
+    Order within the batch and the insert are extract.bloom_check_and_add's.
 
     key_lo, key_hi int64 [N] (u64 bits), valid bool [N], bits int32 [m / 32]
     with m a power of two, updated in place.  Returns keep bool [N].
     """
     m_bits = bits.shape[0] * 32
     bidx = (key_lo ^ (key_hi * _BLOOM_MUL)) & (m_bits - 1)
-    one = torch.ones((), dtype=torch.int32, device=bits.device)
-    mem = (bits[bidx >> 5] & (one << (bidx & 31).to(torch.int32))) != 0
-
-    vi = torch.nonzero(valid).flatten()
-    order = torch.sort(bidx[vi], stable=True)
-    sb, si = order.values, vi[order.indices]
-    first = torch.ones_like(sb, dtype=torch.bool)
-    first[1:] = sb[1:] != sb[:-1]
-    dup = torch.zeros_like(valid)
-    dup[si] = ~first
-    keep = valid & (mem | dup)
-    ins = sb[first & ~mem[si]]
-    bits.index_add_(0, ins >> 5, one << (ins & 31).to(torch.int32))
-    return keep
+    return bloom_check_and_add(bidx, valid, bits)
 
 
 def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
@@ -163,6 +146,8 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
     S = B * w_slot
     if (read_base + batch_hi * B) * W > u64.U32_MAX:
         raise ValueError("window coordinates (read row * W + w) pass 32 bits")
+    syncmer = ((params.s, params.syncmer_hash_bound) if params.use_syncmers
+               else None)
     pos = torch.arange(S, device=dev)
     n_win = torch.zeros((), dtype=torch.int64, device=dev)
     n_over = torch.zeros((), dtype=torch.int64, device=dev)
@@ -174,7 +159,9 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
             codes = all_codes[r]
         out = extract_count(codes, all_lengths[r], l=params.l, k=params.k,
                             hash_bound=params.hash_bound, M=M,
-                            already_hpc=params.reads_already_hpc)
+                            already_hpc=params.reads_already_hpc,
+                            syncmer=syncmer,
+                            ref_cuts=params.seq_ref_cuts)
         row0 = read_base + i * B
         keys_flat = out["keys"].reshape(B * W, 2)
         if bf_on:

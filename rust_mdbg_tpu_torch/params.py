@@ -55,7 +55,7 @@ class Params:
 
     # execution (not in the reference Params; TPU-framework additions)
     threads: int = 8
-    engine: str = "auto"       # "host" (numpy), "device" (JAX/XLA), "pallas", "auto"
+    engine: str = "device"     # "device" (ops/extract, the drivers) or "host" (numpy)
     batch_reads: int = 512     # reads per device batch
     max_read_len: int = 0      # 0 = auto from input scan
     max_minimizers_per_read: int = 0  # 0 = auto (capacity of compacted tensor)

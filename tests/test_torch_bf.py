@@ -28,6 +28,10 @@ from rust_mdbg_tpu_torch.params import Params
 
 from torch_corpus import gfa_bytes, records, write_hpc_reads, write_raw_reads
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 MUL = 0x9E3779B97F4A7C15
 
 

@@ -27,6 +27,10 @@ from rust_mdbg_tpu_torch.core.chunked import (NotPortedError,
 from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
 from rust_mdbg_tpu_torch.params import Params
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(k=7, l=12, density=0.01, min_kmer_abundance=2)
 
@@ -216,20 +220,30 @@ def test_cli_skiphpc(tmp_path, hpc_reads):
     assert _records(p) == _records(q)
 
 
-@pytest.mark.parametrize("flag", [["--read-stats", "x.fa"], ["--mesh", "4"],
-                                  ["--error-correct"], ["--reference"],
-                                  ["--syncmers"]])
+@pytest.mark.parametrize("flag", [["--mesh", "4"], ["--error-correct"],
+                                  ["--multihost"],
+                                  ["--restart-from-postcor"]])
 def test_cli_rejects_unported_paths(tmp_path, reads, flag):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli_main([reads, "-k", "7", "--device", "cpu",
                   "--prefix", str(tmp_path / "x")] + flag)
 
 
+@pytest.mark.parametrize("tool", ["to-basespace", "magic-simplify", "multik",
+                                  "gfa-asm", "synth-reads"])
+def test_cli_rejects_tool_subcommands(tool):
+    with pytest.raises(SystemExit, match=f"{tool} is not ported yet"):
+        cli_main([tool, "--gfa", "x.gfa"])
+
+
 def test_unported_params_raise(tmp_path, reads):
-    for kw in (dict(error_correct=True), dict(seq_ref_cuts=True),
-               dict(reference=True),
-               dict(reads_already_hpc=True, use_syncmers=True)):
-        with pytest.raises(NotPortedError, match="ROADMAP.md"):
+    with pytest.raises(NotPortedError, match="ROADMAP.md"):
+        assemble_device_chunked(reads, Params(**{**KW, "error_correct": True}),
+                                str(tmp_path / "x"), device="cpu")
+    # ported, but the streaming engine's: the device drivers refuse them
+    for kw in (dict(reference=True), dict(uhs=True), dict(lcp=True),
+               dict(has_lmer_counts=True)):
+        with pytest.raises(ValueError, match="streaming engine"):
             assemble_device_chunked(reads, Params(**{**KW, **kw}),
                                     str(tmp_path / "x"), device="cpu")
     # --bf and --minabund > 16 are ported: the first runs here (the Bloom
@@ -267,3 +281,63 @@ def test_no_device_without_cuda_raises(tmp_path, reads, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         assemble_device_chunked(reads, Params(**KW), str(tmp_path / "x"))
+
+
+#: syncmers stay on the device drivers, in vector mode whatever the input
+#: (minimizer_recompute_ok is false for them): raw reads with the extent
+#: plane, pre-HPC'd reads without it (the column is the position)
+SYNC = dict(k=5, l=10, density=0.1, min_kmer_abundance=2, use_syncmers=True)
+
+
+@pytest.mark.parametrize("kind,s,chunk_reads", [
+    ("raw", 4, 64), ("raw", 4, 256), ("hpc", 4, 64), ("hpc", 4, 256),
+    ("raw", 9, 128), ("hpc", 0, 128)])
+def test_syncmers_chunked_matches_jax(tmp_path, reads, hpc_reads, kind, s,
+                                      chunk_reads):
+    path = reads if kind == "raw" else hpc_reads
+    kw = dict(SYNC, s=s, reads_already_hpc=kind == "hpc",
+              density=0.02 if s == 0 else 0.1)
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "torch")
+    sj = jax_chunked(path, JaxParams(engine="device", **kw), pj,
+                     chunk_reads=chunk_reads)
+    st = assemble_device_chunked(path, Params(**kw), pt,
+                                 chunk_reads=chunk_reads, device="cpu")
+    assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa", "rb").read()
+    assert _records(pj) == _records(pt)
+    assert st["nb_nodes"] == sj["nb_nodes"] > 50
+    assert st["nb_edges"] == sj["nb_edges"] > 50
+    assert st["nb_windows"] == sj["nb_windows"]
+    assert "edge_join" not in st  # vector mode: no catalog, no device join
+
+
+def test_syncmers_plan_uses_the_syncmer_rate(reads):
+    """M and W_slot are sized by the syncmer selection rate (below the
+    density), not by twice the density."""
+    from rust_mdbg_tpu.ops.extract import DeviceExtractor
+    from rust_mdbg_tpu.ops.sort_count import window_slot_capacity as wsc_jax
+    from rust_mdbg_tpu_torch.core.chunked import plan_chunks
+
+    plan = plan_chunks(reads, Params(**SYNC), 128)
+    dens = plan_chunks(reads, Params(**dict(SYNC, use_syncmers=False)), 128)
+    pj = JaxParams(**SYNC)
+    assert plan["M"] == DeviceExtractor(pj).capacity(plan["L"]) < dens["M"]
+    assert plan["w_slot"] == wsc_jax(pj, plan["B"], plan["L"], plan["M"]) \
+        < dens["w_slot"]
+
+
+@pytest.mark.parametrize("kind", ["raw", "hpc"])
+def test_seq_ref_cuts_chunked_matches_jax(tmp_path, reads, hpc_reads, kind):
+    """Reference cuts (record spans end at pos + l, no extent plane) through
+    the chunked driver, on raw reads and in recompute mode."""
+    path = reads if kind == "raw" else hpc_reads
+    kw = dict(KW, seq_ref_cuts=True, reads_already_hpc=kind == "hpc")
+    pj, pt, pe = (str(tmp_path / x) for x in ("jax", "torch", "exact"))
+    jax_chunked(path, JaxParams(engine="device", **kw), pj, chunk_reads=128)
+    assemble_device_chunked(path, Params(**kw), pt, chunk_reads=128,
+                            device="cpu")
+    assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa", "rb").read()
+    assert _records(pj) == _records(pt)
+    # on raw reads the cuts differ from the default exact-extent records
+    assemble_device_chunked(path, Params(**dict(kw, seq_ref_cuts=False)), pe,
+                            chunk_reads=128, device="cpu")
+    assert (_records(pe) != _records(pt)) == (kind == "raw")

@@ -31,6 +31,10 @@ from rust_mdbg_tpu_torch.utils.seq import CODE_BASE
 
 from torch_corpus import gfa_bytes, records
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 KW = dict(k=5, l=8, density=0.05, min_kmer_abundance=2, batch_reads=8,
           reads_already_hpc=True)
 P = Params(**KW)

@@ -21,6 +21,10 @@ from rust_mdbg_tpu_torch.ops import edge_join as tj
 from rust_mdbg_tpu_torch.ops import u64
 from rust_mdbg_tpu_torch.ops.sort_count import overlap_keys_device
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 
 def _canon_rows(varr):
     """Host KmerVec::normalize over rows."""

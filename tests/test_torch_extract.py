@@ -27,6 +27,10 @@ from rust_mdbg_tpu_torch.ops.kminmer import (canonicalize, fingerprint128,
 from rust_mdbg_tpu_torch.ops.pack import pack_codes_np, unpack_codes
 from rust_mdbg_tpu_torch.params import Params
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 
 def _reads(seed, B, L, hp=0.3):
     """Raw reads with homopolymer runs (each base repeats the previous one
@@ -163,3 +167,67 @@ def test_kminmer_ops_match_jax():
     keys = window_keys_poly(mh, k, M)
     wins = mh.unfold(1, k, 1)                       # [4, M-k+1, k]
     assert torch.equal(keys, fingerprint128(canonicalize(wins)[0]))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(density=0.003), dict(density=0.05, use_syncmers=True, s=4),
+    dict(density=0.0005, use_syncmers=True, s=4),
+    dict(density=0.7), dict(density=0.003, max_minimizers_per_read=48)])
+@pytest.mark.parametrize("L", [64, 1024, 24_576, 1_049_088])
+def test_capacity_matches_jax(kw, L):
+    """M by the density rate and by the syncmer rate, with and without the
+    per-read override (the tiler ignores it)."""
+    from rust_mdbg_tpu.ops.extract import DeviceExtractor
+    from rust_mdbg_tpu.params import Params as JaxParams
+
+    dj = DeviceExtractor(JaxParams(k=21, l=14, **kw))
+    p = Params(k=21, l=14, **kw)
+    assert capacity(p, L) == dj.capacity(L)
+    assert capacity(p, L, ignore_override=True) == \
+        dj.capacity(L, ignore_override=True)
+
+
+@pytest.mark.parametrize("L,density,mmax", [CASES[0], CASES[1]])
+def test_count_path_ref_cuts_matches_jax(L, density, mmax):
+    """Reference cuts on raw reads: HPC runs, positions are raw, and no
+    extent plane is made (a record ends at pos + l)."""
+    p = Params(k=7, l=10, density=density, seq_ref_cuts=True)
+    M = capacity(p, L)
+    codes, lengths = _reads(L + 7, 16, L)
+    oj = jax.jit(functools.partial(
+        _device_extract, l=p.l, k=p.k, hash_bound=p.hash_bound, M=M,
+        already_hpc=False, count_output=True, ref_cuts=True))(
+        jnp.asarray(codes), jnp.asarray(lengths))
+    ot = extract_count(torch.from_numpy(codes), torch.from_numpy(lengths),
+                       l=p.l, k=p.k, hash_bound=p.hash_bound, M=M,
+                       ref_cuts=True)
+    assert sorted(oj) == sorted(ot) and "mpe" not in ot
+    assert np.array_equal(np.asarray(oj["keys"]), u64.to_numpy(ot["keys"]))
+    for name in ("mp", "nw", "overflow"):
+        assert np.array_equal(np.asarray(oj[name]), ot[name].numpy()), name
+    # positions are raw: past the column wherever a run was compressed
+    first = extract_count(torch.from_numpy(codes), torch.from_numpy(lengths),
+                          l=p.l, k=p.k, hash_bound=p.hash_bound, M=M)
+    assert torch.equal(first["mp"], ot["mp"]) and int(ot["nw"].sum()) > 0
+
+
+@pytest.mark.parametrize("already_hpc", [False, True])
+@pytest.mark.parametrize("s", [4, 0])
+def test_count_path_syncmers_matches_jax(already_hpc, s):
+    """The count path under --syncmers, raw (with the extent plane) and
+    pre-HPC'd (vector mode without it: the column is the position)."""
+    L, l, k, M = 1024, 10, 5, 160
+    codes, lengths = (_hpc_reads if already_hpc else _reads)(s + 40, 16, L)
+    common = dict(l=l, k=k, hash_bound=0, M=M, already_hpc=already_hpc,
+                  syncmer=(s, int((0.02 if s == 0 else 0.2) * 4 ** l)))
+    oj = jax.jit(functools.partial(_device_extract, count_output=True,
+                                   **common))(
+        jnp.asarray(codes), jnp.asarray(lengths))
+    ot = extract_count(torch.from_numpy(codes), torch.from_numpy(lengths),
+                       **common)
+    assert sorted(oj) == sorted(ot) and ("mpe" in ot) != already_hpc
+    for name in oj:
+        got = (u64.to_numpy(ot[name]) if name in ("keys", "mh")
+               else ot[name].numpy())
+        assert np.array_equal(np.asarray(oj[name]), got), name
+    assert int(ot["nw"].sum()) > 0 and not ot["overflow"].any()

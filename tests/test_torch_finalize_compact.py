@@ -23,6 +23,10 @@ from rust_mdbg_tpu_torch.ops.sort_count import (
     construct_batches, finalize_compact, window_slot_capacity)
 from rust_mdbg_tpu_torch.params import Params
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 B, L, NB = 16, 1024, 6
 KW = dict(k=5, l=9, density=0.03, batch_reads=B)
 

@@ -20,6 +20,10 @@ from rust_mdbg_tpu_torch.ops.nthash import (H_BY_CODE, RC_BY_CODE, ntc64,
                                             nthash_windows_np)
 from rust_mdbg_tpu_torch.utils.seq import encode_bases
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 MASK64 = (1 << 64) - 1
 
 

@@ -23,6 +23,10 @@ from rust_mdbg_tpu_torch.ops.sort_count import (
     overlap_keys_device, window_slot_capacity)
 from rust_mdbg_tpu_torch.params import Params
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 B, L, NB = 16, 1024, 4
 P = Params(k=5, l=9, density=0.03, min_kmer_abundance=2)
 #: the same reads taken as already homopolymer-compressed: five buffer

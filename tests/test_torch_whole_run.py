@@ -21,6 +21,10 @@ from rust_mdbg_tpu_torch.params import Params
 
 from torch_corpus import gfa_bytes, records, write_hpc_reads, write_raw_reads
 
+# the suite runs in several worker processes on one machine: a small
+# intra-op pool per process keeps them from oversubscribing its cores
+torch.set_num_threads(2)
+
 #: 400 reads in batches of 4: seven chunks of 16 batches, phase 1 after the
 #: fourth
 KW = dict(k=7, l=12, density=0.01, min_kmer_abundance=2, batch_reads=4)
@@ -153,8 +157,8 @@ def test_assemble_minabund_2_routes_to_chunked(tmp_path, corpora):
 
 def test_over_budget_routes_to_chunked_or_raises(tmp_path, corpora):
     """An input whose buffers would pass the budget goes to the chunked
-    driver when that can take it; past the chunk slots nothing in the port
-    can, and the run raises (the host streaming engine is not ported)."""
+    driver when that can take it; past the chunk slots no device driver
+    can, and the run raises (it does not drop to the host engine)."""
     p = Params(**dict(KW, batch_reads=64))
     st = assemble_device_table(corpora["raw"], p, str(tmp_path / "a"),
                                device="cpu", mem_budget=100_000)
@@ -162,7 +166,7 @@ def test_over_budget_routes_to_chunked_or_raises(tmp_path, corpora):
     assemble_device_chunked(corpora["raw"], p, str(tmp_path / "b"),
                             device="cpu")
     assert gfa_bytes(str(tmp_path / "a")) == gfa_bytes(str(tmp_path / "b"))
-    with pytest.raises(NotPortedError, match="budget"):
+    with pytest.raises(RuntimeError, match="budget"):
         assemble(corpora["raw"], p.replace(min_kmer_abundance=17),
                  str(tmp_path / "c"), device="cpu", mem_budget=100_000)
     fits = assemble_device_table(corpora["raw"], p, str(tmp_path / "d"),
@@ -204,23 +208,72 @@ def test_cli_runs_bf_and_minabund_17(tmp_path, corpora, flags, kind):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(engine="host"), "host streaming engine"),
-    (dict(reference=True), "--reference"),
-    (dict(use_syncmers=True), "schemes"),
+    (dict(reference=True), "streaming engine"),
+    (dict(uhs=True), "streaming engine"),
     (dict(error_correct=True), "error correction")])
 def test_assemble_rejects_unported_paths(tmp_path, corpora, kw, what):
-    for fn in (assemble, assemble_device_table):
-        if fn is assemble_device_table and "engine" in kw:
-            continue
+    """Error correction is a later slice everywhere; the streaming engine's
+    schemes are refused by the whole-run driver when it is called directly."""
+    err = NotPortedError if "error_correct" in kw else ValueError
+    with pytest.raises(err, match=what):
+        assemble_device_table(corpora["raw"], Params(**{**KW, **kw}),
+                              str(tmp_path / "x"), device="cpu")
+    if "error_correct" in kw:
         with pytest.raises(NotPortedError, match=what):
-            fn(corpora["raw"], Params(**{**KW, **kw}), str(tmp_path / "x"),
-               device="cpu")
+            assemble(corpora["raw"], Params(**{**KW, **kw}),
+                     str(tmp_path / "x"), device="cpu")
 
 
 def test_read_stats_is_not_ported(tmp_path, corpora):
-    with pytest.raises(NotPortedError, match="--read-stats"):
-        assemble(corpora["raw"], Params(**KW), str(tmp_path / "x"),
-                 read_stats_path=corpora["raw"], device="cpu")
+    """The name is from the slice before the streaming engine: --read-stats
+    now runs, writes <file>.read_stats beside its (copied) input and
+    returns without a GFA."""
+    import shutil
+
+    rs = str(tmp_path / "copy.fa")
+    shutil.copy(corpora["raw"], rs)
+    st = assemble(corpora["raw"], Params(**dict(KW, batch_reads=64)),
+                  str(tmp_path / "x"), read_stats_path=rs, device="cpu")
+    assert "nb_nodes" not in st and not (tmp_path / "x.gfa").exists()
+    lines = open(rs + ".read_stats").read().splitlines()
+    assert len(lines) == st["nb_reads"] == 400
+    assert all(": " in ln or ln.endswith(":") for ln in lines)
+
+
+#: syncmers on the whole-run path (vector mode): raw reads and pre-HPC'd
+SYNC = dict(k=5, l=10, density=0.1, use_syncmers=True, s=4, batch_reads=8)
+
+
+@pytest.mark.parametrize("kind,minab", [("deep", 17), ("deep_hpc", 17),
+                                        ("raw", 2)])
+def test_syncmers_table_matches_jax(tmp_path, corpora, kind, minab):
+    kw = dict(SYNC, min_kmer_abundance=minab,
+              reads_already_hpc=kind.endswith("hpc"))
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "torch")
+    sj = jax_table(corpora[kind], JaxParams(engine="device", **kw), pj,
+                   PhaseTimer(), {})
+    st = assemble_device_table(corpora[kind], Params(**kw), pt, device="cpu")
+    assert gfa_bytes(pj) == gfa_bytes(pt)
+    assert records(pj) == records(pt)
+    assert st["nb_nodes"] == sj["nb_nodes"] > 20
+    assert st["nb_edges"] == sj["nb_edges"] > 20
+    assert st["nb_windows"] == sj["nb_windows"]
+    # never recompute mode: one shot, the host join
+    assert st["phase1_nodes"] == 0 and st.get("edge_join") is None
+
+
+def test_assemble_routes_syncmers_to_the_device_drivers(tmp_path, corpora):
+    """`assemble` under --syncmers: the chunked driver at minabund 2, the
+    whole run at 17, the same files as the JAX dispatcher."""
+    for minab, kind, key in ((2, "raw", "nb_chunks"),
+                             (17, "deep", "phase1_nodes")):
+        kw = dict(SYNC, min_kmer_abundance=minab, chunk_reads=128)
+        pj, pt = str(tmp_path / f"jax{minab}"), str(tmp_path / f"t{minab}")
+        jax_assemble(corpora[kind], JaxParams(engine="device", **kw), pj)
+        st = assemble(corpora[kind], Params(**kw), pt, device="cpu")
+        assert key in st and st["nb_nodes"] > 20
+        assert gfa_bytes(pj) == gfa_bytes(pt)
+        assert records(pj) == records(pt)
 
 
 @pytest.mark.parametrize("fn", [assemble, assemble_device_table])
