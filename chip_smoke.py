@@ -10,9 +10,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    started together);
 2. each kernel against its plain torch version on the card, with exact
    (integer) comparison: at the shape the main path gives it, timed with
-   CUDA events after warm-up, and at small ragged shapes (l from 1 to 64,
-   odd L, an unaligned row slice, edge rows, N and code 5 in the tile
-   halos);
+   CUDA events after warm-up, and at small ragged shapes (nthash_select: l
+   from 1 to 64, odd L, an unaligned row slice, edge rows, N and code 5 in
+   the tile halos; syncmer_select: s = 0, l = 32, w = 1, odd L, B = 1, L
+   below w, an unaligned row slice, and rows of one base, short repeats
+   and two-letter noise where the incumbent walk's fix-up runs long);
 3. slice parity: a small synthetic corpus through the port on "cuda" and on
    "cpu" — the .gfa must be byte-identical and the .sequences records equal;
    then the same corpus as pre-HPC'd input (reads_already_hpc=True,
@@ -60,9 +62,15 @@ Phases (any failure exits non-zero, and no result line is printed):
     memory, rows re-extracted on the host, filter fill and the launches of
     both kernels; a leg fails when more than 1 % of its rows were
     re-extracted on the host (parity legs too) or a tile was;
-11. the syncmer breakdown: torch.profiler over one [512, 24576] batch of
+11. the fault legs (after the scheme parity legs): cuda = cpu on the runs
+    the JAX package finishes only through its streaming fall-back, each
+    with its re-plans or route: a read three times the sampled length after
+    read 100 (chunked and whole run), a forced small minimizer capacity
+    (chunked and whole run), an over-budget run at minabund 17 (streaming,
+    density and syncmers);
+12. the syncmer breakdown: torch.profiler over one [512, 24576] batch of
     the count-path extraction under --syncmers, device time by torch op
-    and the hand kernel's share.
+    and the fused kernel's share.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -219,73 +227,108 @@ def check_nthash_select(torch, np, hash_bound: int) -> dict:
         shape=[B, L], l=l, selected=n_sel, cases=cases)
 
 
-def _incumbent_planes(torch, np, seed: int, B: int, L: int, l: int, s: int):
-    """The four planes of the incumbent recurrence, made by the port's own
-    front half (ops/syncmers_device.syncmer_planes) from random codes with
-    N runs and ragged lengths; w = l - s + 1."""
-    from rust_mdbg_tpu_torch.ops.syncmers_device import syncmer_planes
-
-    codes, lengths = _nthash_batch(np, seed, B, L, l)
+def _syncmer_batch(np, seed: int, B: int, L: int, l: int,
+                   adversarial: bool = True):
+    """_nthash_batch's codes plus a few N runs per row and, in rows 4 to 7
+    unless `adversarial` is false, the adversarial rows of the incumbent
+    walk: all one base (every s-mer hash equal: no forced column, and traces
+    out of phase never meet, so the walk is sequential along the row), a
+    period-2 and a period-3 repeat, and two-letter noise (ties everywhere
+    at small s)."""
+    Bb = max(B, 8)  # below 8 rows, the last B (random, ragged) are kept
+    codes, lengths = _nthash_batch(np, seed, Bb, L, l)
     rng = np.random.default_rng(seed + 1)
-    for r in range(B):  # a few N runs per row, beside the sprinkled Ns
+    for r in range(Bb):
         for j in rng.integers(0, max(1, L - 8), 3):
             codes[r, j : j + int(rng.integers(1, 8))] = 4
-    dev = torch.device("cuda")
-    pl = syncmer_planes(torch.from_numpy(codes).to(dev),
-                        torch.from_numpy(lengths).to(dev), l=l, s=s,
-                        bound=int(0.05 * 4 ** l))
-    return tuple(pl[x] for x in ("lpos", "rpos", "run_start", "strict_new"))
+    rows = [np.zeros(L, np.uint8), np.arange(L) % 2, np.arange(L) % 3,
+            rng.integers(0, 2, L)]
+    for r, row in zip(range(4, 8 if adversarial else 4), rows):
+        codes[r] = row
+        lengths[r] = L
+    return codes[Bb - B :], lengths[Bb - B :]
 
 
-def check_syncmer_incumbent(torch, np) -> dict:
-    """The kernel vs its plain version (the column-by-column torch form),
-    element by element: at small ragged shapes over an (l, s) grid down to
-    w = 2, odd L, B not a multiple of the kernel's rows per block, and an
-    unaligned row slice; and at the main path's batch shape, timed."""
+def check_syncmer_select(torch, np) -> dict:
+    """The fused kernel vs its plain version (the torch planes, then the
+    column scan), hl and sel exactly: at the main path's [512, 24576]
+    (l = 14, s = 4, d = 0.05), timed, and at s = 0, l = 32, w = 1, odd L,
+    B = 1, L below w, an unaligned row slice and full-width adversarial
+    rows (timed too, for information)."""
     from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.ops.syncmers_device import syncmer_planes
 
+    dev = torch.device(DEVICE)
     cases = {}
-    grid = [(14, 4, 0), (10, 4, 0), (12, 2, 0), (8, 7, 0), (12, 11, 0),
-            (14, 4, 3)]
-    for l, s, skip in grid:
-        B, L = 25, 6147
-        planes = _incumbent_planes(torch, np, 200 + l + s, B, L, l, s)
-        # a row slice of contiguous planes: rows start at skip * L elements
-        planes = tuple(x[skip:] for x in planes)
-        got = kernels.syncmer_incumbent(*planes)
+    small = [((25, 6147), 14, 4, 0), ((25, 6147), 14, 0, 0),
+             ((25, 6147), 32, 8, 0), ((25, 6147), 12, 12, 0),
+             ((25, 6147), 12, 2, 3), ((9, 37), 12, 11, 0),
+             ((9, 5), 10, 4, 0), ((1, 24576), 14, 4, 0),
+             ((1, 30011), 16, 16, 0), ((12, 4099), 31, 15, 1),
+             ((8, 24576), 14, 4, 0)]
+    for (B, L), l, s, skip in small:
+        codes, lengths = _syncmer_batch(np, 300 + l + s, B, L, l)
+        c = torch.from_numpy(codes).to(dev)[skip:]
+        n = torch.from_numpy(lengths).to(dev)[skip:]
+        bound = int(0.2 * 4 ** l)
         key = f"[{B - skip}, {L}] l={l} s={s}" + (f" rows {skip}:" if skip
                                                    else "")
-        cases[key] = int(
-            (got != kernels.syncmer_incumbent_plain(*planes)).sum())
+        cases[key] = _mismatches(
+            torch, kernels.syncmer_select(c, n, l=l, s=s, bound=bound),
+            kernels.syncmer_select_plain(c, n, l=l, s=s, bound=bound))
 
+    # the timed batch has no adversarial row: one such row makes its block
+    # walk its 24,576 columns in order and sets the time of the launch,
+    # where HPC'd reads (no homopolymer) and short repeats never do
     B, L, l, s = 512, 24576, 14, 4
-    planes = _incumbent_planes(torch, np, 9, B, L, l, s)
-    got = kernels.syncmer_incumbent(*planes)
-    want = kernels.syncmer_incumbent_plain(*planes)
+    bound = int(0.05 * 4 ** l)
+    codes, lengths = _syncmer_batch(np, 9, B, L, l, adversarial=False)
+    c = torch.from_numpy(codes).to(dev)
+    n = torch.from_numpy(lengths).to(dev)
+    kw = dict(l=l, s=s, bound=bound)
+    t0 = time.perf_counter()
+    hl_p, sel_p = kernels.syncmer_select_plain(c, n, **kw)
     torch.cuda.synchronize()
-    main_mismatches = int((got != want).sum())
-    max_abs_err = float((got.long() - want.long()).abs().max())
-    del got, want
-    ms = cuda_time_ms(lambda: kernels.syncmer_incumbent(*planes), 50)
-    # L steps of seven launches each: one timed call after the warm-up
-    plain_ms = cuda_time_ms(lambda: kernels.syncmer_incumbent_plain(*planes),
-                            1)
-    # least time: the four planes read once (4 + 4 + 1 + 1 B/position), the
-    # trace written once (4 B); one compare and one select per position is
-    # nothing beside it
-    nbytes = B * L * 14
+    plain_ms = (time.perf_counter() - t0) * 1e3  # one call: L column steps
+    hl_k, sel_k = kernels.syncmer_select(c, n, **kw)
+    torch.cuda.synchronize()
+    bad = (hl_k != hl_p) | (sel_k != sel_p)
+    main_mismatches = int(bad.sum())
+    max_abs_err = 0.0
+    if main_mismatches:
+        hk = hl_k[bad].cpu().numpy().view(np.uint64).astype(object)
+        hp = hl_p[bad].cpu().numpy().view(np.uint64).astype(object)
+        max_abs_err = float(max(abs(int(a) - int(b)) for a, b in zip(hk, hp)))
+    n_sel = int(sel_k.sum())
+    del hl_k, sel_k, hl_p, sel_p
+    ms = cuda_time_ms(lambda: kernels.syncmer_select(c, n, **kw), 50)
+    # the torch front half that the retired incumbent kernel followed
+    planes_ms = cuda_time_ms(lambda: syncmer_planes(c, n, **kw), 5)
+    # the walk's worst case, for information: the four adversarial rows
+    # (one of them a single base) among eight
+    ac, an = (torch.from_numpy(x).to(dev)
+              for x in _syncmer_batch(np, 10, 8, L, l))
+    adversarial_ms = cuda_time_ms(
+        lambda: kernels.syncmer_select(ac, an, **kw), 10)
+    # least time: codes 1 B + lengths 4 B/row read once, hl 8 B + sel 1 B
+    # written once.  Operations, for information: ~150 32-bit lane
+    # operations a position (two invertible hashes, an 11-way argmin, the
+    # rolls, the walk), an estimate
+    nbytes = B * L * (1 + 8 + 1) + B * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(
-        name="syncmer_incumbent", route="cuda",
-        source="rust_mdbg_tpu_torch/csrc/syncmer_incumbent.cu",
-        replaces="rust_mdbg_tpu/ops/syncmers_device.py:97 (three lax.scan "
-                 "passes; no pallas_call)",
+        name="syncmer_select", route="cuda",
+        source="rust_mdbg_tpu_torch/csrc/syncmer_select.cu",
+        replaces="rust_mdbg_tpu/ops/syncmers_device.py:182 "
+                 "(syncmer_select_jax, XLA; no pallas_call)",
         launches=0, max_abs_err=max_abs_err,
         mismatches=main_mismatches + sum(cases.values()),
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-        bound_share=bound_ms / ms,
-        ops_bound_ms=B * L * 2 / INT32_OPS_PER_S * 1e3, library_ms=None,
-        gbytes_per_s=nbytes / ms / 1e6, shape=[B, L], l=l, s=s, cases=cases)
+        ms=ms, plain_ms=plain_ms, planes_ms=planes_ms,
+        adversarial_8_rows_ms=adversarial_ms, bound_ms=bound_ms,
+        bound_by="bytes", bound_share=bound_ms / ms,
+        ops_bound_ms=B * L * 150 / INT32_OPS_PER_S * 1e3, library_ms=None,
+        gbytes_per_s=nbytes / ms / 1e6, shape=[B, L], l=l, s=s,
+        selected=n_sel, cases=cases)
 
 
 def read_records(prefix: str):
@@ -598,7 +641,7 @@ def whole_run_parity(tmp: str, Params) -> dict:
                              "between cuda and cpu")
         if launched <= 0:
             raise SystemExit(f"whole-run parity ({leg}): no kernel launch")
-        if sg["nb_nodes"] <= 0 or sg["nb_edges"] <= 0 or sg["n_over"]:
+        if sg["nb_nodes"] <= 0 or sg["nb_edges"] <= 0 or sg["replans"]:
             raise SystemExit(f"whole-run parity ({leg}): bad graph {sg}")
         fired = sg["phase1_nodes"] > 0
         if fired != ("prehpc" in leg) or fired != (sc["phase1_nodes"] > 0):
@@ -655,7 +698,7 @@ def whole_run_main(tmp: str, Params, syn: dict, leg: str, chunked=None):
     (nodes, n_l) = gfa_signature(prefix)
     n_rec = len(read_records(prefix))
     if not (len(nodes) == st["nb_nodes"] == n_rec and n_l == st["nb_edges"]
-            and (n_rec > 0 or leg == "raw17")) or st["n_over"]:
+            and (n_rec > 0 or leg == "raw17")) or st["replans"]:
         raise SystemExit(f"whole-run main path ({leg}): inconsistent "
                          f"outputs S={len(nodes)} L={n_l} records={n_rec} "
                          f"stats={st}")
@@ -674,7 +717,7 @@ def whole_run_main(tmp: str, Params, syn: dict, leg: str, chunked=None):
         nthash_select_launches=launches, phase1_fired=st["phase1_nodes"] > 0,
         phase1_nodes=st["phase1_nodes"],
         phase1_finalize_s=st.get("phase1_finalize_s"),
-        phase1_emit_s=st.get("phase1_emit_s"), n_over=st["n_over"],
+        phase1_emit_s=st.get("phase1_emit_s"), replans=st["replans"],
         edge_join=st.get("edge_join"), read_cap=st["read_cap"],
         w_slot=st["w_slot"], mem_budget=st["mem_budget"])
     if chunked is not None:
@@ -875,12 +918,12 @@ def scheme_parity(tmp: str, Params, np) -> dict:
         p = Params(**{**base, **SYNC_KW, **extra})
         run = assemble_device_table if leg == "syncmers_table" else assemble
         reads = deep if leg == "syncmers_table17" else f["reads"]
-        before = (kernels.syncmer_incumbent.launches,
+        before = (kernels.syncmer_select.launches,
                   kernels.nthash_select.launches)
         sg = run(reads, p, os.path.join(tmp, f"{leg}_g"), device=DEVICE)
-        launched = kernels.syncmer_incumbent.launches - before[0]
+        launched = kernels.syncmer_select.launches - before[0]
         if launched <= 0 or kernels.nthash_select.launches != before[1]:
-            raise SystemExit(f"scheme parity ({leg}): syncmer_incumbent "
+            raise SystemExit(f"scheme parity ({leg}): syncmer_select "
                              f"launched {launched} times")
         run(reads, p, os.path.join(tmp, f"{leg}_c"), device="cpu")
         _same_outputs(f"scheme parity ({leg}), cuda vs cpu",
@@ -991,6 +1034,77 @@ def scheme_parity(tmp: str, Params, np) -> dict:
     return out
 
 
+def fault_legs(tmp: str, Params) -> dict:
+    """The three cures of runs the JAX package finishes only through its
+    streaming fall-back, cuda = cpu in .gfa bytes and .sequences records,
+    each with its re-plans or route: (a) a read three times the sampled
+    length after read 100 (the chunked driver stages it alone, the whole
+    run restarts), (b) a forced small minimizer capacity (chunks re-run at
+    doubled slots, the whole run restarts), (c) an over-budget run at
+    minabund 17 (the streaming engine on the card), density and syncmers."""
+    from rust_mdbg_tpu_torch.core.pipeline import assemble
+    from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    base = os.path.join(tmp, "fault_base.fa")
+    write_synthetic_reads(base, genome_mbp=0.1, coverage=100, read_len=5000,
+                          error_rate=0.002, seed=13)
+    with open(base) as f:
+        lines = f.read().split("\n")
+    lines[2 * 149 + 1] = "".join(lines[1:7:2])
+    long = os.path.join(tmp, "fault_long.fa")
+    with open(long, "w") as f:
+        f.write("\n".join(lines))
+    kw = dict(k=21, l=14, density=0.003, batch_reads=64)
+    legs = [("long_read_chunked", long, dict(min_kmer_abundance=2), None),
+            ("long_read_whole17", long, dict(min_kmer_abundance=17), None),
+            ("doubled_m_chunked", base,
+             dict(min_kmer_abundance=2, max_minimizers_per_read=24), None),
+            ("doubled_m_whole17", base,
+             dict(min_kmer_abundance=17, max_minimizers_per_read=24), None),
+            ("over_budget17", base, dict(min_kmer_abundance=17), 1),
+            # k = 7: open syncmers at d = 0.05 keep ~1 % of positions;
+            # batches of 512: the CPU side walks each column by column
+            ("over_budget17_syncmers", base,
+             dict(min_kmer_abundance=17, k=7, batch_reads=512, **SYNC_KW),
+             1)]
+    out = {}
+    for leg, reads, extra, budget in legs:
+        t0 = time.perf_counter()
+        p = Params(**{**kw, **extra})
+        before = (kernels.nthash_select.launches,
+                  kernels.syncmer_select.launches)
+        sg = assemble(reads, p, os.path.join(tmp, f"{leg}_g"), device=DEVICE,
+                      mem_budget=budget)
+        launched = (kernels.nthash_select.launches - before[0],
+                    kernels.syncmer_select.launches - before[1])
+        sc = assemble(reads, p, os.path.join(tmp, f"{leg}_c"), device="cpu",
+                      mem_budget=budget)
+        _same_outputs(f"fault leg ({leg}), cuda vs cpu",
+                      os.path.join(tmp, f"{leg}_g"),
+                      os.path.join(tmp, f"{leg}_c"))
+        route = sg.get("route")
+        if budget is not None:
+            ok = route == sc.get("route") == \
+                "streaming (over whole-run budget)"
+        else:
+            ok = route is None and sg["replans"] == sc["replans"] >= 1
+        if not ok or launched[1 if p.use_syncmers else 0] <= 0 \
+                or sg["nb_nodes"] <= 0:
+            raise SystemExit(f"fault leg ({leg}): route {route}, re-plans "
+                             f"{sg.get('replans')} / {sc.get('replans')}, "
+                             f"launches {launched}, {sg['nb_nodes']} nodes")
+        out[leg] = dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
+                        reads=sg["nb_reads"], replans=sg.get("replans"),
+                        route=route or ("whole run" if "phase1_nodes" in sg
+                                        else "chunked"),
+                        nthash_select_launches=launched[0],
+                        syncmer_select_launches=launched[1],
+                        seconds=time.perf_counter() - t0)
+        print(f"fault leg {leg}: {json.dumps(out[leg])}", flush=True)
+    return out
+
+
 def scheme_main(tmp: str, Params, syn: dict, leg: str, np) -> dict:
     """One of the three scheme legs over main.fa at [512, 24576] batches,
     k = 21, l = 14: (d) --syncmers raw through assemble (the chunked
@@ -1016,15 +1130,15 @@ def scheme_main(tmp: str, Params, syn: dict, leg: str, np) -> dict:
     prefix = os.path.join(tmp, f"scheme_{leg}")
     torch.cuda.reset_peak_memory_stats()
     kernels.nthash_select.launches = 0
-    kernels.syncmer_incumbent.launches = 0
+    kernels.syncmer_select.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = pipeline.assemble(reads, p, prefix, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(nthash_select=kernels.nthash_select.launches,
-                    syncmer_incumbent=kernels.syncmer_incumbent.launches)
-    wanted = "syncmer_incumbent" if leg == "syncmers" else "nthash_select"
+                    syncmer_select=kernels.syncmer_select.launches)
+    wanted = "syncmer_select" if leg == "syncmers" else "nthash_select"
     if launches[wanted] <= 0:
         raise SystemExit(f"scheme main path ({leg}): {wanted} never "
                          "launched")
@@ -1043,7 +1157,8 @@ def scheme_main(tmp: str, Params, syn: dict, leg: str, np) -> dict:
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         host_rows=st.get("host_rows", 0),
         nthash_select_launches=launches["nthash_select"],
-        syncmer_incumbent_launches=launches["syncmer_incumbent"])
+        syncmer_select_launches=launches["syncmer_select"],
+        replans=st.get("replans"))
     if leg == "syncmers":
         if "nb_chunks" not in st:
             raise SystemExit("scheme main path (syncmers): the run did not "
@@ -1123,7 +1238,7 @@ def syncmer_breakdown(tmp: str, Params) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        if "syncmer_incumbent" in e.name:
+        if "syncmer_select" in e.name:
             kernel_us += e.time_range.end - e.time_range.start
     busy = 0.0
     end = float("-inf")
@@ -1142,8 +1257,8 @@ def syncmer_breakdown(tmp: str, Params) -> dict:
         device_events=len(spans), busy_us=busy,
         device_us=sum(b - a for a, b in spans),
         busy_share_unprofiled=busy / unprofiled_us if spans else None,
-        syncmer_incumbent_us=kernel_us,
-        syncmer_incumbent_share=kernel_us / busy if busy else None,
+        syncmer_select_us=kernel_us,
+        syncmer_select_share=kernel_us / busy if busy else None,
         top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
 
 
@@ -1185,7 +1300,7 @@ def main() -> int:
 
     hash_bound = Params(k=21, l=14, density=0.003).hash_bound
     rows = [check_nthash_select(torch, np, hash_bound),
-            check_syncmer_incumbent(torch, np)]
+            check_syncmer_select(torch, np)]
     for r in rows:
         print(f"kernel check: {json.dumps(r)}", flush=True)
         if r["mismatches"]:
@@ -1233,6 +1348,10 @@ def main() -> int:
         spar = scheme_parity(tmp, Params, np)
         spar["seconds"] = time.perf_counter() - t0
         print(f"scheme parity: {json.dumps(spar)}", flush=True)
+        t0 = time.perf_counter()
+        faults = fault_legs(tmp, Params)
+        faults["seconds"] = time.perf_counter() - t0
+        print(f"fault legs: {json.dumps(faults)}", flush=True)
         scheme = {}
         for leg in ("syncmers", "uhs_bf", "reference"):
             scheme[leg] = scheme_main(tmp, Params, syn, leg, np)
@@ -1250,7 +1369,7 @@ def main() -> int:
         **{f"scheme_{leg}": w["nthash_select_launches"]
            for leg, w in scheme.items()})
     rows[1]["launches_by_leg"] = {
-        f"scheme_{leg}": w["syncmer_incumbent_launches"]
+        f"scheme_{leg}": w["syncmer_select_launches"]
         for leg, w in scheme.items()}
     for r in rows:
         r["launches"] = sum(r["launches_by_leg"].values())

@@ -5,15 +5,20 @@
         [--syncmers [-s S]] [--lmer-counts F] [--uhs F] [--lcp F]
         [--reference] [--read-stats F] [--engine device|host]
         [--device cuda|cpu]
+    python -m rust_mdbg_tpu_torch synth-reads out.fa [--genome-mbp G] ...
 
-The run goes through core/pipeline.assemble, which routes as
-`python -m rust_mdbg_tpu` does: density and syncmer runs to the chunked
-driver (--minabund up to 16) or the whole-run device path (above it),
-everything else to the streaming engine.  The flags and subcommands of the
-JAX package's CLI that select paths this port does not run yet are
-accepted and rejected with a "not ported yet" error naming ROADMAP.md, so
-a command line written for `python -m rust_mdbg_tpu` fails clearly instead
-of running something else.
+The parser takes every flag of `python -m rust_mdbg_tpu` and maps it onto
+the same Params: -n, -t, --distance, --correction-threshold, --threads,
+--ec-device-poa, --ec-procs and --ec-chunk are read as there, and
+--error-correct beside --reference runs with error correction off, as
+there.  The run goes through core/pipeline.assemble, which routes as the
+JAX package does: density and syncmer runs to the chunked driver
+(--minabund up to 16) or the whole-run device path (above it), everything
+else to the streaming engine.  Error correction (--error-correct without
+--reference), --restart-from-postcor, --mesh, --multihost and every tool
+subcommand but synth-reads select paths this port does not run yet: they
+fail with a "not ported yet" error naming ROADMAP.md instead of running
+something else.
 """
 
 from __future__ import annotations
@@ -32,11 +37,11 @@ _NOT_PORTED = {
     "mesh": "--mesh", "multihost": "--multihost",
 }
 
-#: subcommands of the JAX package's CLI (its tools/), later slices too
+#: subcommands of the JAX package's CLI (its tools/) not ported yet
 _TOOLS = (
     "to-basespace", "gfa-asm", "magic-simplify", "multik", "gfa2fasta",
     "break-loops", "simplify-meta", "gfa-complete", "hpc-compress",
-    "gfa-strip", "extreme-simplify", "synth-reads", "ec-scale", "quality-n50",
+    "gfa-strip", "extreme-simplify", "ec-scale", "quality-n50",
 )
 
 
@@ -56,8 +61,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--prefix", default=None)
     p.add_argument("-k", type=int, default=None, help="k-min-mer length")
     p.add_argument("-l", type=int, default=None, help="minimizer length")
+    p.add_argument("-n", type=int, default=None,
+                   help="EC bucketing tuple length")
+    p.add_argument("-t", type=int, default=None,
+                   help="POA path weight threshold")
     p.add_argument("-d", "--density", type=float, default=None)
     p.add_argument("--minabund", type=int, default=2)
+    p.add_argument("--distance", type=int, default=None,
+                   help="0: Jaccard, 1: containment, 2: Mash")
+    p.add_argument("--correction-threshold", type=int, default=None)
     p.add_argument("--presimp", type=float, default=0.01)
     p.add_argument("--no-basespace", action="store_true")
     p.add_argument("--skiphpc", action="store_true",
@@ -77,6 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lmer-counts-max", type=int, default=None)
     p.add_argument("--uhs", default=None, help="universal k-mer file")
     p.add_argument("--lcp", default=None, help="core substring file")
+    p.add_argument("--threads", type=int, default=None)
     p.add_argument("--engine", default="device", type=_engine,
                    choices=["device", "host"],
                    help="extraction engine: the device's, or the numpy host "
@@ -88,6 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reads per device chunk (0 = auto by input size)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain torch versions)")
+    p.add_argument("--ec-device-poa", action="store_true")
+    p.add_argument("--ec-procs", type=int, default=0)
+    p.add_argument("--ec-chunk", type=int, default=32)
     for dest in _NOT_PORTED:
         flag = "--" + dest.replace("_", "-")
         if dest == "mesh":
@@ -99,7 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def params_from_args(args) -> tuple[Params, str]:
     for dest, label in _NOT_PORTED.items():
-        if getattr(args, dest):
+        # --reference turns error correction off (the JAX CLI's rule)
+        if getattr(args, dest) and not (dest == "error_correct"
+                                        and args.reference):
             raise SystemExit(
                 f"error: {label} is not ported yet (see ROADMAP.md)")
     k, l, density = 10, 12, 0.10
@@ -115,7 +133,15 @@ def params_from_args(args) -> tuple[Params, str]:
         l = args.l if args.l is not None else l
         density = args.density if args.density is not None else density
     params = Params(
-        k=k, l=l, density=density, min_kmer_abundance=args.minabund,
+        k=k, l=l, density=density,
+        n=args.n if args.n is not None else 2,
+        t=args.t if args.t is not None else 0,
+        min_kmer_abundance=args.minabund,
+        distance=min(args.distance, 2) if args.distance is not None else 0,
+        correction_threshold=(args.correction_threshold
+                              if args.correction_threshold is not None
+                              else 0),
+        error_correct=bool(args.error_correct) and not args.reference,
         presimp=args.presimp, no_basespace=bool(args.no_basespace),
         reads_already_hpc=bool(args.skiphpc),
         use_bf=bool(args.bf), bloom_log2_bits=args.bf_bits,
@@ -129,9 +155,12 @@ def params_from_args(args) -> tuple[Params, str]:
                          if args.lmer_counts_max is not None else 100000),
         uhs=args.uhs is not None, lcp=args.lcp is not None,
         debug=bool(args.debug),
+        threads=args.threads if args.threads is not None else 8,
         engine=args.engine,
         batch_reads=args.batch_reads, max_read_len=args.max_read_len,
-        chunk_reads=args.chunk_reads)
+        chunk_reads=args.chunk_reads,
+        ec_device_poa=bool(args.ec_device_poa), ec_chunk=args.ec_chunk,
+        ec_procs=args.ec_procs)
     if args.lmer_counts is not None:
         object.__setattr__(params, "_lmer_counts_path", args.lmer_counts)
     if args.uhs is not None:
@@ -144,6 +173,10 @@ def params_from_args(args) -> tuple[Params, str]:
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "synth-reads":
+        from .experiments.synth import main as synth_main
+
+        return synth_main(argv[1:])
     if argv and argv[0] in _TOOLS:
         raise SystemExit(
             f"error: {argv[0]} is not ported yet (see ROADMAP.md)")
@@ -174,6 +207,8 @@ def main(argv=None):
         print(f"Pre-simp = {params.presimp}: "
               f"{stats.get('presimp_removed', 0)} edges removed.")
     print(f"PHASES {stats['phases']}")
+    if stats.get("h2d_bytes"):
+        print(f"H2D bytes: {stats['h2d_bytes']}")
     print(f"Total execution time: {time.time() - t0:.2f}s")
     print(f"Maximum RSS: {max_rss_bytes() / 1024**3:.3f}GB")
     return 0

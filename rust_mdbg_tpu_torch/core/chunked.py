@@ -32,6 +32,16 @@ Two environment switches, read once per run, keep the JAX package's names:
 MDBG_CHUNK_DEVICE_JOIN=0 takes the host join from the start, and
 MDBG_CHUNK_CAT_CAP bounds the catalog's rows (default 2^22).
 
+A chunk that does not fit the run's plan is re-planned on the same device
+and counted in the stats' `replans`, where the JAX package's driver raises
+and its `assemble` re-runs the input through streaming: a read longer than
+the staging width (the feed hands it over alone) is staged at its own
+staging width with its own slots (long_read_plan), and a chunk whose reads
+overflow their minimizer or window slots is re-run at doubled slots
+before anything of it reaches the merge (construct_accepted).  Such a
+chunk is reduced in a counter of its own and merged into the same node
+table.
+
 Node ids follow crossing-occurrence order, so the .gfa is byte-identical
 to the JAX package's on the same input and Params.
 """
@@ -149,6 +159,35 @@ def plan_chunks(reads_path: str, params: Params, chunk_reads: int = 0) -> dict:
         L_half=L // 2 if (L // 2) % 512 == 0 and L // 2 >= 1024 else 0)
 
 
+def long_read_plan(params: Params, plan: dict, length: int) -> dict:
+    """The plan of an over-long read's singleton chunk (the feed hands a
+    read longer than the staging width over on its own): one batch of one
+    read at the width staging_width(length), with its own minimizer and
+    window slots."""
+    from ..ops.extract import capacity
+    from ..ops.sort_count import window_slot_capacity
+
+    L = staging_width(length)
+    M = capacity(params, L)
+    return dict(plan, L=L, B=1, M=M, chunk_reads=1, n_batches=1,
+                w_slot=window_slot_capacity(params, 1, L, M),
+                packed=L % 8 == 0, L_half=0)
+
+
+def doubled_plan(params: Params, plan: dict, width: int) -> dict:
+    """The plan that re-runs a chunk whose reads overflowed: twice the
+    minimizer slots (at most the staged width, where the compaction keeps
+    every position) and twice the window slots (at most the windows a read
+    can have).  Raises when the plan is at both limits already."""
+    M = min(2 * plan["M"], width)
+    w_slot = max(8, min(M - params.k + 1, 2 * plan["w_slot"]))
+    if M == plan["M"] and w_slot == plan["w_slot"]:
+        raise RuntimeError(
+            "a chunk overflowed its capacity at every minimizer and window "
+            "slot of its staged width")
+    return dict(plan, M=M, w_slot=w_slot)
+
+
 def host_feed(codes: np.ndarray, lens: np.ndarray, fill: int,
               plan: dict) -> tuple:
     """A parsed chunk's codes as the host arrays copied to the device: cut
@@ -157,7 +196,8 @@ def host_feed(codes: np.ndarray, lens: np.ndarray, fill: int,
     from ..ops.pack import pack_codes_np
 
     if codes.shape[1] != plan["L"]:
-        raise RuntimeError("read longer than staging width")
+        raise ValueError(f"codes of width {codes.shape[1]} for a plan of "
+                         f"staging width {plan['L']}")
     L_half = plan["L_half"]
     if L_half and int(lens[:fill].max()) <= L_half:
         codes = np.ascontiguousarray(codes[:, :L_half])
@@ -182,21 +222,46 @@ def new_counter(params: Params, plan: dict, dev: torch.device):
         device=dev, with_ext=counter_flags(params)["with_ext"])
 
 
+def construct_accepted(params: Params, plan: dict, counter, staged: tuple,
+                       lens_d: torch.Tensor, fill: int) -> tuple:
+    """construct_chunk, re-run on the same staged chunk at doubled_plan
+    with a counter of its own until no read overflows its minimizer or
+    window slots.  Nothing of a rejected attempt leaves the counter it was
+    made in.  Returns (finalize_chunk's result, the accepted plan, its
+    counter, the re-plans made)."""
+    # the staged columns (host_feed may have cut the chunk to L_half)
+    width = staged[0].shape[1] * (4 if plan["packed"] else 1)
+    replans = 0
+    while True:
+        res, n_over = construct_chunk(params, plan, counter, staged, lens_d,
+                                      fill)
+        if not n_over:
+            return res, plan, counter, replans
+        counter.reset_chunk()
+        plan = doubled_plan(params, plan, width)
+        counter = new_counter(params, plan, lens_d.device)
+        replans += 1
+
+
 def construct_chunk(params: Params, plan: dict, counter, staged: tuple,
                     lens_d: torch.Tensor, fill: int) -> tuple:
     """One staged chunk of `fill` reads through construct_batches and the
-    per-chunk reduction: (finalize_chunk's result, reads that overflowed
-    minimizer capacity)."""
+    per-chunk reduction: (finalize_chunk's result, the reads and batches
+    over their minimizer or window slots).  A chunk with any of those, or
+    one that fills every window slot of the counter (the reduction keeps
+    one row spare), is not reduced: the result is None."""
     from ..ops.sort_count import construct_batches
 
     B = plan["B"]
-    _n, n_over = construct_batches(
+    n_win, n_over = construct_batches(
         params, staged if plan["packed"] else staged[0], lens_d,
         counter.buffers, B=B, M=plan["M"], w_slot=plan["w_slot"],
         batch_lo=0, batch_hi=min(plan["n_batches"], (fill + B - 1) // B),
         bf=False)  # --bf is screened by the host merge (nt_merge_chunk)
-    res = counter.finalize_chunk()
-    return res, int(n_over)
+    n_over = int(n_over) + (int(n_win) >= counter.window_cap)
+    if n_over:
+        return None, n_over
+    return counter.finalize_chunk(), 0
 
 
 def _host_join_gfa(prefix, params, nodes, gk: np.ndarray, gf: np.ndarray):
@@ -251,6 +316,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     nb_windows = 0
     h2d_bytes = 0
     chunk_i = 0
+    replans = 0
     rec_ok = minimizer_recompute_ok(params)
     vec_ids: list[np.ndarray] = []
     vec_arrs: list[np.ndarray] = []   # [n, k] u64 vectors (vector mode)
@@ -275,10 +341,15 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             gf_arrs.append(gf_sp)
         catalog = None
 
-    def flush_chunk(staged, lens_d, ready, blob, blob_off, fill):
-        """One chunk through: device reduce -> native merge -> crossing
-        gather -> .sequences shard."""
-        nonlocal chunk_i, nb_windows
+    def flush_chunk(staged, lens_d, ready, blob, blob_off, fill, cplan):
+        """One chunk, staged by the chunk plan `cplan`, through: device
+        reduce -> native merge -> crossing gather -> .sequences shard.  A
+        chunk under another plan than the run's (an over-long read, or
+        reads over their slots) is reduced in a counter of its own and
+        merged into the same node table."""
+        nonlocal chunk_i, nb_windows, replans
+        own = cplan is not plan
+        ccounter = new_counter(params, cplan, dev) if own else counter
         with timer.phase("construct"):
             if ready is not None:
                 # the stager copied on its own stream: wait for it, and
@@ -287,19 +358,17 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                 cur.wait_event(ready)
                 for t in (*staged, lens_d):
                     t.record_stream(cur)
-            res, n_over = construct_chunk(params, plan, counter, staged,
-                                          lens_d, fill)
+            res, cplan, ccounter, n_re = construct_accepted(
+                params, cplan, ccounter, staged, lens_d, fill)
+            replans += n_re + own
             del staged, lens_d
-        if n_over:
-            raise RuntimeError(
-                f"{n_over} reads overflowed minimizer capacity")
         with timer.phase("merge"):
             sel, _ = table.merge_chunk(
                 res["key_lo"], res["key_hi"], res["count"])
             nb_windows += int(res["count"].sum())
         cross = np.nonzero(sel)[0]
         if cross.size:
-            occs = counter.occ_at_chunk(cross, sel[cross])
+            occs = ccounter.occ_at_chunk(cross, sel[cross])
             # node ids are assigned in crossing-OCCURRENCE order
             order = np.argsort(occs, kind="stable")
             cross = cross[order]
@@ -309,7 +378,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                 n_clipped = 0
                 if catalog is not None:
                     gk_d, gf_d, meta, mpos = \
-                        counter.gather_crossing_keys_dev(occs)
+                        ccounter.gather_crossing_keys_dev(occs)
                     if catalog.fits(len(occs)):
                         catalog.append(gk_d, gf_d)
                     else:  # bounded catalog full: spill, go host from here
@@ -317,9 +386,10 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                         gk = u64.to_numpy(gk_d)
                         gflag = gf_d.cpu().numpy()
                 elif rec_ok:
-                    gk, gflag, meta, mpos = counter.gather_crossing_keys(occs)
+                    gk, gflag, meta, mpos = ccounter.gather_crossing_keys(
+                        occs)
                 else:
-                    vec, meta, n_clipped = counter.gather_crossing(occs)
+                    vec, meta, n_clipped = ccounter.gather_crossing(occs)
             if n_clipped:
                 raise RuntimeError(CLIPPED_MSG.format(n_clipped))
             seqlen = meta[:, 0].astype(np.uint32)
@@ -344,7 +414,8 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                         hash_bound=params.hash_bound if rec_ok else 0,
                         mpos=mpos)
         with timer.phase("reset"):
-            counter.reset_chunk()
+            if ccounter is counter:
+                counter.reset_chunk()
         chunk_i += 1
 
     from .fastx_feed import stream_chunks
@@ -365,7 +436,13 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             codes, lens, blob, blob_off, fill = tup
             if fill == 0:
                 continue
-            host = host_feed(codes, lens, fill, plan)
+            cplan = plan
+            if codes.shape[1] != plan["L"]:  # an over-long read, alone
+                cplan = long_read_plan(params, plan, int(lens[0]))
+                wide = np.full((1, cplan["L"]), 4, dtype=np.uint8)
+                wide[:, : codes.shape[1]] = codes
+                codes = wide
+            host = host_feed(codes, lens, fill, cplan)
             del codes, tup
             h2d_bytes += sum(a.nbytes for a in host) + lens.nbytes
             ready = None
@@ -376,7 +453,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                     ready.record(side)
             else:
                 staged, lens_d = to_device(host, lens, dev)
-            return staged, lens_d, ready, blob, blob_off, fill
+            return staged, lens_d, ready, blob, blob_off, fill, cplan
 
     # Double-buffered feed: a staging thread packs and copies chunk N+1
     # while the main thread runs chunk N's construct + host merge/emit.
@@ -421,6 +498,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     stats["nb_nodes_prefilter"] = len(table)
     stats["nb_chunks"] = chunk_i
     stats["h2d_bytes"] = h2d_bytes
+    stats["replans"] = replans
 
     with timer.phase("gfa"):
         if params.min_kmer_abundance > 1:

@@ -13,8 +13,15 @@ host engine of core/extract), the native node table, .sequences records at
 the abundance-crossing occurrence, the abundance filter, the GFA.
 
 The JAX `assemble` drops to its host engine when the device engine cannot
-be made, and to its streaming half when a device driver raises.  The port
-hides no device failure: it raises.
+be made, and to its streaming half when a device driver raises (a read
+past the staging width, reads over their minimizer or window slots, an
+input over the whole-run budget at --minabund beyond the chunk slots).
+The port catches no device failure.  Its drivers re-plan on the same
+device instead: an over-long read or an overflowing chunk is re-staged at
+its own width or at doubled slots (core/chunked), the whole run restarts
+at the wider width or the doubled slots, and an over-budget run that the
+chunked driver cannot take is sent to the streaming engine before any
+device work.  Every route writes the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -43,8 +50,12 @@ from .nodetable import NodeTable
 #: batches per staged chunk of the whole-run driver
 CHUNK_BATCHES = 16
 
-#: whole-run buffer budget on the CPU, bytes (the JAX package's figure, so
-#: both route alike in the parity tests)
+#: whole-run buffer budget on the CPU, bytes: the JAX package's figure, but
+#: held against another count.  The port's buffers come to read_cap x (24 x
+#: w_slot + 12 or 16 x M) bytes (plan_table's per_read), the JAX package
+#: counts read_cap x (20 x W_slot + 12 x M), so near the threshold the two
+#: packages can take different routes.  Every route writes the same bytes;
+#: only the route differs.
 CPU_MEM_BUDGET = 4_000_000_000
 
 #: share of the card's free memory the whole-run buffers may take: the
@@ -290,18 +301,23 @@ def whole_run_budget(dev: torch.device) -> int:
     return int(CUDA_BUDGET_SHARE * free)
 
 
-def plan_table(reads_path: str, params: Params) -> dict:
+def plan_table(reads_path: str, params: Params, L: int = 0,
+               m_mult: int = 1) -> dict:
     """The sizes a whole-run pass stages and allocates by: staging width L,
     batch B, minimizer slots M, window slots per read, the estimated read
     capacity, the counter flags, whether the feed is 2-bit packed, and the
-    buffer bytes per read that the budget is held against."""
+    buffer bytes per read that the budget is held against.
+
+    A re-planned pass names its width L (an over-long read came) or
+    multiplies the minimizer and window slots by m_mult (reads overflowed
+    them), each capped where it holds every position and window."""
     from ..ops.extract import capacity
     from ..ops.sort_count import counter_flags, window_slot_capacity
 
     mean_len, mx = fastx.read_first_n_reads(reads_path, 100)
-    L = params.max_read_len or staging_width(mx)
+    L = L or params.max_read_len or staging_width(mx)
     B = params.batch_reads
-    M = capacity(params, L)
+    M = min(L, capacity(params, L) * m_mult)
     fsize = os.path.getsize(reads_path)
     if str(reads_path).endswith((".gz", ".lz4")):
         fsize *= 6  # DNA text compresses ~3.5-4x; headroom on top
@@ -311,8 +327,11 @@ def plan_table(reads_path: str, params: Params) -> dict:
     if flags["use_bf"]:
         frac = float(os.environ.get("MDBG_BF_SLOT_FRAC", "1.0"))
         w_slot = max(8, (int(w_slot * frac) + 7) & ~7)
+    if m_mult > 1:
+        w_slot = max(8, min(M - params.k + 1, w_slot * m_mult))
     return dict(
-        L=L, B=B, M=M, w_slot=w_slot, mean_len=mean_len, flags=flags,
+        L=L, B=B, M=M, w_slot=w_slot, m_mult=m_mult, mean_len=mean_len,
+        flags=flags,
         read_cap=((est_reads + B - 1) // B) * B,
         chunk_reads=CHUNK_BATCHES * B,
         packed=L % 8 == 0,  # 2-bit + mask feed (ops/pack)
@@ -341,8 +360,6 @@ def construct_table_chunk(params: Params, plan: dict, counter, codes, lens,
     from ..ops.pack import pack_codes_np
     from ..ops.sort_count import construct_batches
 
-    if codes.shape[1] != plan["L"]:
-        raise RuntimeError("read longer than staging width")
     if read_base + plan["chunk_reads"] > counter.read_cap:
         counter.grow(read_base + plan["chunk_reads"])
     dev = counter.buffers[0].device
@@ -370,15 +387,23 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
     The raw read bytes stay in host memory for the whole run (a crossing
     may reference any read), so `assemble` sends here only what the chunked
     driver cannot take.  An input whose buffers would pass `mem_budget`
-    bytes (default: whole_run_budget) goes to the chunked driver when it is
-    chunked_eligible, and raises otherwise.
+    bytes (default: whole_run_budget) goes, before any device work, to the
+    chunked driver when it is chunked_eligible and to the streaming engine
+    on the same device otherwise (stats `route`: "streaming (over whole-run
+    budget)").
+
+    A read longer than the staging width, or reads or batches over their
+    minimizer or window slots, restart the pass on the same device at
+    staging_width of that read or at doubled slots (plan_table); the stats
+    count the restarts in `replans`, and a re-planned run is held against
+    the budget again.
 
     With --bf (counter_flags' use_bf) the Bloom screen runs on the device
     and drops each key's first sighting before the counter, so the reduction
     sorts post-filter rows only.  How many survive depends on the input
     (error rate x coverage), so shrinking the per-batch slot with them is
     opt-in: MDBG_BF_SLOT_FRAC scales W_slot, and an overflowing slot aborts
-    the run (n_over) rather than truncating.
+    the pass (a re-plan at doubled slots) rather than truncating.
 
     Recompute mode (pre-HPC'd reads) emits in two phases: at a power-of-two
     chunk count near a quarter of the estimated input a reduction over the
@@ -386,31 +411,49 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
     thread writes their records and GFA rows while the main thread goes on
     constructing.  The stats say so: `phase1_nodes` (0 when the phase never
     fired) with the helper's `phase1_finalize_s` and `phase1_emit_s`,
-    `edge_join`, `n_over`, `read_cap`, `w_slot`, `mem_budget`.
+    `edge_join`, `read_cap`, `w_slot`, `mem_budget`, `replans`.
     """
     from ..ops.kernels import build_all
-    from .fastx_feed import stream_chunks
 
     dev = resolve_device(device)
     check_device_driver(params)
     timer = timer or PhaseTimer()
     stats = stats if stats is not None else {}
-
-    plan = plan_table(reads_path, params)
     if mem_budget is None:
         mem_budget = whole_run_budget(dev)
-    if plan["read_cap"] * plan["per_read"] > mem_budget:
-        if chunked_eligible(params):
-            return assemble_device_chunked(reads_path, params, prefix, timer,
-                                           stats, device=dev)
-        raise RuntimeError(
-            f"input over the whole-run device budget ({mem_budget} B) at "
-            "--minabund beyond the chunk slots; use --engine host for this "
-            "--minabund")
 
-    with timer.phase("compile"):
-        if dev.type == "cuda":
-            build_all()
+    plan = plan_table(reads_path, params)
+    replans = 0
+    while plan["read_cap"] * plan["per_read"] <= mem_budget:
+        with timer.phase("compile"):
+            if dev.type == "cuda":
+                build_all()
+        plan = _table_pass(reads_path, params, prefix, plan, dev, timer,
+                           stats)
+        if plan is None:
+            stats.update(mem_budget=int(mem_budget), replans=replans)
+            stats["phases"] = timer.report()
+            return stats
+        replans += 1
+    if chunked_eligible(params):
+        stats = assemble_device_chunked(reads_path, params, prefix, timer,
+                                        stats, device=dev)
+    else:
+        stats["route"] = "streaming (over whole-run budget)"
+        stats = assemble_streaming(reads_path, params, prefix, None, dev,
+                                   timer, stats)
+    stats["replans"] = stats.get("replans", 0) + replans
+    return stats
+
+
+def _table_pass(reads_path: str, params: Params, prefix: str, plan: dict,
+                dev: torch.device, timer: PhaseTimer, stats: dict):
+    """One whole-run pass under `plan`: None when it wrote the outputs and
+    filled `stats`, or the plan to restart under when a read is longer
+    than the staging width or reads overflowed their slots (whatever the
+    pass had written is abandoned; the restart rewrites it)."""
+    from .fastx_feed import stream_chunks
+
     rec_ok = minimizer_recompute_ok(params)
     counter = new_table_counter(params, plan, dev)
 
@@ -457,12 +500,26 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
         t.start()
         phase.update(em=em, thread=t)
 
+    def abandon():
+        if "thread" in phase:
+            phase["thread"].join()
+        if "em" in phase:
+            phase["em"].gfa.abort()
+
+    longest = 0  # the longest read past the staging width
     try:
         with timer.phase("extract+count(device)"):
             chunks_flushed = 0
             for codes, lens, cblob, cblob_off, fill in stream_chunks(
                     reads_path, CH, plan["B"], plan["L"], plan["mean_len"]):
                 if fill == 0:
+                    continue
+                if codes.shape[1] != plan["L"]:
+                    # an over-long read (the feed hands it over alone): the
+                    # pass will restart at the staging width of the longest
+                    # such read, so the rest of the input is only parsed
+                    longest = max(longest, int(lens[0]))
+                if longest:
                     continue
                 n_over_acc.append(construct_table_chunk(
                     params, plan, counter, codes, lens, fill, read_base))
@@ -483,6 +540,23 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
                 phase["thread"].join()  # phase 1 ran under the stream
                 if "error" in phase:
                     raise phase["error"]
+            if longest:
+                abandon()
+                return plan_table(reads_path, params,
+                                  L=staging_width(longest),
+                                  m_mult=plan["m_mult"])
+            if sum(int(x) for x in n_over_acc):
+                # reads or batches over their minimizer or window slots:
+                # restart at doubled slots
+                abandon()
+                grown = plan_table(reads_path, params, L=plan["L"],
+                                   m_mult=2 * plan["m_mult"])
+                if (grown["M"], grown["w_slot"]) == (plan["M"],
+                                                    plan["w_slot"]):
+                    raise RuntimeError(
+                        "reads overflowed every minimizer and window slot "
+                        "of the staging width")
+                return grown
             row_lo = phase["ph1"].n_pass if "ph1" in phase else 0
             with timer.phase("finalize"):
                 nodes = counter.finalize(lazy=True, row_lo=row_lo,
@@ -492,11 +566,6 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
                     else np.zeros(0, dtype=np.uint8))
             row_off = (np.concatenate(row_off_parts) if row_off_parts
                        else np.zeros(0, dtype=np.int64))
-            n_over = sum(int(x) for x in n_over_acc)
-            if n_over:
-                raise RuntimeError(
-                    f"{n_over} reads or batches overflowed minimizer or "
-                    "window-slot capacity")
 
         stats["nb_reads"] = nb_reads
         with timer.phase("sequences+gfa"):
@@ -514,18 +583,13 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
                 counts = nodes.fetch_full("count")
             stats["nb_windows"] = int(counts.sum())
     except BaseException:
-        if "thread" in phase:
-            phase["thread"].join()
-        if "em" in phase:
-            phase["em"].gfa.abort()
+        abandon()
         raise
     stats.update(g)
-    stats.update(phase1_nodes=row_lo, n_over=n_over, read_cap=counter.read_cap,
-                 w_slot=plan["w_slot"], mem_budget=int(mem_budget),
-                 nb_chunks=chunks_flushed)
+    stats.update(phase1_nodes=row_lo, read_cap=counter.read_cap,
+                 w_slot=plan["w_slot"], nb_chunks=chunks_flushed)
     if "ph1" in phase:
         # host seconds of the helper thread, beside the construct loop
         stats.update(phase1_finalize_s=phase["finalize_s"],
                      phase1_emit_s=phase["emit_s"])
-    stats["phases"] = timer.report()
-    return stats
+    return None

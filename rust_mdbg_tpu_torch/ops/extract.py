@@ -6,7 +6,7 @@ src/read.rs:176-211, and the windowing loop main.rs:756-781) as torch ops
 over a [B, L] uint8 batch:
 
   HPC compaction -> hash + selection (the nthash_select kernel under the
-  density scheme, ops/syncmers_device under --syncmers) -> optional
+  density scheme, the syncmer_select kernel under --syncmers) -> optional
   lmer-count remap and UHS/LCP check_and_add filter -> compaction of the
   selected positions into [B, M] rows -> k-windowing -> canonicalization
   -> shifts/offsets -> 128-bit fingerprints
@@ -34,7 +34,7 @@ import torch
 
 from . import u64
 from .hpc import hpc
-from .kernels import nthash_select
+from .kernels import nthash_select, syncmer_select
 from .kminmer import canonicalize, fingerprint128, poly_fp_tables
 
 _I64_MAX = (1 << 63) - 1
@@ -73,11 +73,13 @@ def _compact_positions(sel: torch.Tensor, hash_bound: int, M: int):
     """First M selected positions per row (ascending; L where absent) and
     the overflow flag, by the same two compaction branches as the JAX
     package: two-level per-512-chunk sorts for L % 512 == 0 and L > 2048,
-    one flat row sort otherwise."""
+    one flat row sort otherwise.  At M == L (a chunk re-planned to keep
+    every position, core/chunked.doubled_plan) the flat sort, which has no
+    per-chunk cap, so that the overflow flag stays clear."""
     B, L = sel.shape
     dev = sel.device
     n_min_raw = sel.sum(dim=1, dtype=torch.int32)
-    if L % 512 == 0 and L > 2048:
+    if L % 512 == 0 and L > 2048 and M != L:
         C = _chunk_slot_capacity(hash_bound)
         nch = L // 512
         selc = sel.reshape(B * nch, 512)
@@ -344,8 +346,6 @@ def device_extract(codes: torch.Tensor, lengths: torch.Tensor, *tables,
 
     # hash + select
     if syncmer is not None:
-        from .syncmers_device import syncmer_select
-
         canon, sel = syncmer_select(hpc_codes, hpc_len, l=l, s=syncmer[0],
                                     bound=syncmer[1])
     else:

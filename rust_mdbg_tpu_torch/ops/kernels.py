@@ -15,6 +15,7 @@ Counterpart of rust_mdbg_tpu/ops/pallas_kernels.py.  Each kernel has:
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import subprocess
 import threading
@@ -24,6 +25,7 @@ import torch
 
 from . import u64
 from .nthash import nthash_windows
+from .syncmers_device import syncmer_planes
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -31,7 +33,7 @@ BUILD_DIR = os.path.join(CSRC, "build")
 
 #: kernel name -> CUDA source file under csrc/
 SOURCES = {"nthash_select": "nthash_select.cu",
-           "syncmer_incumbent": "syncmer_incumbent.cu"}
+           "syncmer_select": "syncmer_select.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -94,8 +96,9 @@ _ENTRY_POINTS = {
         "nthash_select_launch":
             [_P] * 4 + [_I] * 3 + [ctypes.c_ulonglong, _P],
     },
-    "syncmer_incumbent": {
-        "syncmer_incumbent_launch": [_P] * 5 + [_I] * 2 + [_P],
+    "syncmer_select": {
+        "syncmer_select_launch":
+            [_P] * 4 + [_I] * 4 + [ctypes.c_ulonglong, _P],
     },
 }
 
@@ -167,7 +170,7 @@ def nthash_select(codes: torch.Tensor, l: int, hash_bound: int,
 nthash_select.launches = 0
 
 
-# --- syncmer_incumbent --------------------------------------------------------
+# --- syncmer_select -----------------------------------------------------------
 
 #: the incumbent before the first column: below every position
 INC_START = -(1 << 30)
@@ -176,8 +179,10 @@ INC_START = -(1 << 30)
 def syncmer_incumbent_plain(lpos: torch.Tensor, rpos: torch.Tensor,
                             run_start: torch.Tensor,
                             strict_new: torch.Tensor) -> torch.Tensor:
-    """Plain torch version: column by column with a [B] carry, L steps of a
-    handful of selects each."""
+    """The incumbent trace of the open-syncmer sliding minimum, column by
+    column with a [B] carry: inc[a] = run_start[a] ? lpos[a] :
+    ((strict_new[a] or inc[a-1] < a) ? rpos[a] : inc[a-1]), inc[-1] =
+    INC_START.  lpos, rpos int32 [B, L]; run_start, strict_new bool."""
     B, L = lpos.shape
     inc = torch.full((B,), INC_START, dtype=torch.int32, device=lpos.device)
     out = torch.empty_like(lpos)
@@ -189,36 +194,56 @@ def syncmer_incumbent_plain(lpos: torch.Tensor, rpos: torch.Tensor,
     return out
 
 
-def syncmer_incumbent(lpos: torch.Tensor, rpos: torch.Tensor,
-                      run_start: torch.Tensor,
-                      strict_new: torch.Tensor) -> torch.Tensor:
-    """Incumbent trace of the open-syncmer sliding minimum.
+def syncmer_select_plain(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *,
+                         l: int, s: int, bound: int):
+    """Plain torch version: the planes of syncmers_device.syncmer_planes,
+    then the column scan syncmer_incumbent_plain and the selection."""
+    pl = syncmer_planes(hpc_codes, hpc_len, l=l, s=s, bound=bound)
+    hl, valid_l, passed = pl["hl"], pl["valid_l"], pl["passed"]
+    if s == 0:
+        # "kminmer" mode (read.rs:324-339): every N-free l-mer, density only
+        return hl, valid_l & passed
+    t = math.ceil((l - s + 1) / 2.0)
+    inc = syncmer_incumbent_plain(pl["lpos"], pl["rpos"], pl["run_start"],
+                                  pl["strict_new"])
+    idx = torch.arange(hl.shape[1], dtype=torch.int32, device=hl.device)
+    return hl, valid_l & (inc == idx[None, :] + (t - 1)) & passed
 
-    lpos, rpos int32 [B, L]; run_start, strict_new bool [B, L].  Returns int32
-    [B, L] with inc[a] = run_start[a] ? lpos[a] : ((strict_new[a] or
-    inc[a-1] < a) ? rpos[a] : inc[a-1]), inc[-1] = -2^30.  CPU tensors take
-    the plain version; CUDA tensors launch csrc/syncmer_incumbent.cu."""
-    if lpos.device.type == "cpu":
-        return syncmer_incumbent_plain(lpos, rpos, run_start, strict_new)
-    _check_cuda(lpos, torch.int32, "lpos")
-    _check_cuda(rpos, torch.int32, "rpos")
-    _check_cuda(run_start, torch.bool, "run_start")
-    _check_cuda(strict_new, torch.bool, "strict_new")
-    if lpos.dim() != 2 or any(t.shape != lpos.shape or t.device != lpos.device
-                              for t in (rpos, run_start, strict_new)):
-        raise ValueError("lpos, rpos, run_start, strict_new must share one "
-                         "[B, L] shape and device")
-    B, L = lpos.shape
-    inc = torch.empty((B, L), dtype=torch.int32, device=lpos.device)
-    lib = _lib("syncmer_incumbent")
-    stream = torch.cuda.current_stream(lpos.device).cuda_stream
-    err = lib.syncmer_incumbent_launch(
-        lpos.data_ptr(), rpos.data_ptr(), run_start.data_ptr(),
-        strict_new.data_ptr(), inc.data_ptr(), B, L, stream)
+
+def syncmer_select(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
+                   s: int, bound: int):
+    """Canonical l-mer hash + open-syncmer selection over HPC codes.
+
+    hpc_codes uint8 [B, L], hpc_len int32 [B].  Returns (hl int64 [B, L]
+    holding u64 bits, sel bool [B, L]): hl the invertible hash of the
+    canonical 2-bit l-mer (all ones where the window holds an N or runs past
+    the length), sel the open-syncmer selection (s > 0) or the density pass
+    (s == 0) of ops/syncmers_device.  CPU tensors take the plain version;
+    CUDA tensors launch csrc/syncmer_select.cu (l <= 32)."""
+    if hpc_codes.device.type == "cpu":
+        return syncmer_select_plain(hpc_codes, hpc_len, l=l, s=s, bound=bound)
+    _check_cuda(hpc_codes, torch.uint8, "hpc_codes")
+    _check_cuda(hpc_len, torch.int32, "hpc_len")
+    if hpc_codes.dim() != 2 or hpc_len.shape != (hpc_codes.shape[0],):
+        raise ValueError(f"bad shapes {tuple(hpc_codes.shape)} / "
+                         f"{tuple(hpc_len.shape)}")
+    if hpc_len.device != hpc_codes.device:
+        raise ValueError("hpc_codes and hpc_len on different devices")
+    if not (1 <= l <= 32 and 0 <= s <= l):
+        raise ValueError(f"syncmer_select takes 1 <= l <= 32 and "
+                         f"0 <= s <= l, got l={l}, s={s}")
+    B, L = hpc_codes.shape
+    hl = torch.empty((B, L), dtype=torch.int64, device=hpc_codes.device)
+    sel = torch.empty((B, L), dtype=torch.bool, device=hpc_codes.device)
+    lib = _lib("syncmer_select")
+    stream = torch.cuda.current_stream(hpc_codes.device).cuda_stream
+    err = lib.syncmer_select_launch(
+        hpc_codes.data_ptr(), hpc_len.data_ptr(), hl.data_ptr(),
+        sel.data_ptr(), B, L, l, s, bound & ((1 << 64) - 1), stream)
     if err != 0:
-        raise RuntimeError(f"syncmer_incumbent launch failed: CUDA error {err}")
-    syncmer_incumbent.launches += 1
-    return inc
+        raise RuntimeError(f"syncmer_select launch failed: CUDA error {err}")
+    syncmer_select.launches += 1
+    return hl, sel
 
 
-syncmer_incumbent.launches = 0
+syncmer_select.launches = 0

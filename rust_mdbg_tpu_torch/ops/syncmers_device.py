@@ -15,14 +15,16 @@ window a, the transition is
           i_{a-1}    otherwise
 
 where lpos / rpos are the leftmost / rightmost argmins of each window: O(w)
-shifted elementwise passes over [B, L].  Everything data-dependent is
-precomputed; what is left is one int32 recurrence per row.  On a CUDA
-tensor that recurrence is the hand kernel csrc/syncmer_incumbent.cu
-(ops/kernels.syncmer_incumbent); its plain version, which a CPU tensor
-takes, is the column-by-column `syncmer_incumbent_plain` there.  The JAX package's
-three-pass transfer-table form exists because a per-lane loop is slow on a
-TPU; nothing here needs it, and no switch puts a plain form in the
-kernel's place on the card.
+shifted elementwise passes over [B, L].  This module holds those planes in
+plain torch (`syncmer_planes`); the selection itself is
+ops/kernels.syncmer_select: on a CUDA tensor the fused kernel
+csrc/syncmer_select.cu, which computes the hash, the planes and the
+recurrence in one pass and writes none of the planes, and on a CPU tensor
+its plain version `syncmer_select_plain` (these planes, then the column
+scan `syncmer_incumbent_plain`).  The JAX package's three-pass
+transfer-table form exists because a per-lane loop is slow on a TPU;
+nothing here needs it, and no switch puts a plain form in the kernel's
+place on the card.
 
 Selection: window a is emitted iff the incumbent sits at window offset t-1
 and the canonical l-mer's invertible hash passes the density bound
@@ -33,12 +35,9 @@ Hashes are u64 bit patterns in int64 tensors (ops/u64.py).
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from . import u64
-from .kernels import syncmer_incumbent
 
 _I64_MAX = (1 << 63) - 1
 
@@ -95,9 +94,9 @@ def _shl_right1(x: torch.Tensor) -> torch.Tensor:
 
 def syncmer_planes(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
                    s: int, bound: int) -> dict:
-    """The data-parallel front half of syncmer_select: the canonical l-mer
-    hash `hl`, its validity `valid_l` and density pass `passed`, and (for
-    s > 0) the four planes of the incumbent recurrence: `lpos`, `rpos`
+    """The data-parallel front half of kernels.syncmer_select_plain: the
+    canonical l-mer hash `hl`, its validity `valid_l` and density pass
+    `passed`, and (for s > 0) the four planes of the incumbent recurrence: `lpos`, `rpos`
     int32 and `run_start`, `strict_new` bool, all [B, L]."""
     B, L = hpc_codes.shape
     dev = hpc_codes.device
@@ -135,23 +134,3 @@ def syncmer_planes(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
     out.update(lpos=lpos, rpos=rpos, run_start=run_start,
                strict_new=strict_new)
     return out
-
-
-def syncmer_select(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
-                   s: int, bound: int):
-    """(canon, sel) over HPC positions: canon[p] = canonical l-mer invertible
-    hash, sel[p] = open-syncmer selected (exact host-oracle semantics)."""
-    pl = syncmer_planes(hpc_codes, hpc_len, l=l, s=s, bound=bound)
-    hl, valid_l, passed = pl["hl"], pl["valid_l"], pl["passed"]
-    if s == 0:
-        # "kminmer" mode (read.rs:324-339): every N-free l-mer, density only
-        return hl, valid_l & passed
-
-    w = l - s + 1
-    t = math.ceil(w / 2.0)
-    planes = (pl["lpos"], pl["rpos"], pl["run_start"], pl["strict_new"])
-    # the kernel on a CUDA tensor, its plain version on a CPU one
-    incumbent = syncmer_incumbent(*planes)
-    idx = torch.arange(hl.shape[1], dtype=torch.int32, device=hl.device)
-    sel = valid_l & (incumbent == idx[None, :] + (t - 1)) & passed
-    return hl, sel

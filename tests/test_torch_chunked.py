@@ -230,7 +230,7 @@ def test_cli_rejects_unported_paths(tmp_path, reads, flag):
 
 
 @pytest.mark.parametrize("tool", ["to-basespace", "magic-simplify", "multik",
-                                  "gfa-asm", "synth-reads"])
+                                  "gfa-asm", "gfa2fasta"])
 def test_cli_rejects_tool_subcommands(tool):
     with pytest.raises(SystemExit, match=f"{tool} is not ported yet"):
         cli_main([tool, "--gfa", "x.gfa"])

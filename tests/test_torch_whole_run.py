@@ -79,7 +79,7 @@ def test_table_matches_jax(tmp_path, corpora, kind, minab):
     assert st["nb_edges"] == sj["nb_edges"] > 50
     assert st["nb_reads"] == sj["nb_reads"]
     assert st["nb_windows"] == sj["nb_windows"]
-    assert st["nb_chunks"] >= 5 and st["n_over"] == 0
+    assert st["nb_chunks"] >= 5 and st["replans"] == 0
     # recompute mode emits in two phases and joins on the device
     assert (st["phase1_nodes"] > 0) == hpc
     assert st.get("edge_join") == ("device" if hpc else None)
@@ -158,7 +158,8 @@ def test_assemble_minabund_2_routes_to_chunked(tmp_path, corpora):
 def test_over_budget_routes_to_chunked_or_raises(tmp_path, corpora):
     """An input whose buffers would pass the budget goes to the chunked
     driver when that can take it; past the chunk slots no device driver
-    can, and the run raises (it does not drop to the host engine)."""
+    can, and the run goes to the streaming engine on the same device (it
+    no longer raises, and it does not drop to the host engine)."""
     p = Params(**dict(KW, batch_reads=64))
     st = assemble_device_table(corpora["raw"], p, str(tmp_path / "a"),
                                device="cpu", mem_budget=100_000)
@@ -166,9 +167,15 @@ def test_over_budget_routes_to_chunked_or_raises(tmp_path, corpora):
     assemble_device_chunked(corpora["raw"], p, str(tmp_path / "b"),
                             device="cpu")
     assert gfa_bytes(str(tmp_path / "a")) == gfa_bytes(str(tmp_path / "b"))
-    with pytest.raises(RuntimeError, match="budget"):
-        assemble(corpora["raw"], p.replace(min_kmer_abundance=17),
-                 str(tmp_path / "c"), device="cpu", mem_budget=100_000)
+    p17 = p.replace(min_kmer_abundance=17)
+    st = assemble(corpora["raw"], p17, str(tmp_path / "c"), device="cpu",
+                  mem_budget=100_000)
+    assert st["route"] == "streaming (over whole-run budget)"
+    assert "host_rows" in st and st["replans"] == 0
+    assemble_device_table(corpora["raw"], p17, str(tmp_path / "e"),
+                          device="cpu")
+    assert gfa_bytes(str(tmp_path / "c")) == gfa_bytes(str(tmp_path / "e"))
+    assert records(str(tmp_path / "c")) == records(str(tmp_path / "e"))
     fits = assemble_device_table(corpora["raw"], p, str(tmp_path / "d"),
                                  device="cpu")
     assert fits["mem_budget"] == pipeline.CPU_MEM_BUDGET
@@ -285,10 +292,15 @@ def test_no_device_without_cuda_raises(tmp_path, corpora, monkeypatch, fn):
 
 
 def test_overflow_aborts(tmp_path, corpora):
-    """A read with more minimizers than the compacted rows hold makes the
-    run raise instead of dropping windows."""
-    with pytest.raises(RuntimeError, match="overflowed"):
-        assemble_device_table(
-            corpora["raw"],
-            Params(**dict(KW, max_minimizers_per_read=12)),
-            str(tmp_path / "x"), device="cpu")
+    """A read with more minimizers than the compacted rows hold no longer
+    aborts the whole run: it restarts at doubled slots, drops no window,
+    and writes what the run without the cap writes."""
+    st = assemble_device_table(
+        corpora["raw"], Params(**dict(KW, max_minimizers_per_read=12)),
+        str(tmp_path / "x"), device="cpu")
+    assert st["replans"] >= 1
+    ref = assemble_device_table(corpora["raw"], Params(**KW),
+                                str(tmp_path / "y"), device="cpu")
+    assert ref["replans"] == 0 and st["nb_windows"] == ref["nb_windows"]
+    assert gfa_bytes(str(tmp_path / "x")) == gfa_bytes(str(tmp_path / "y"))
+    assert records(str(tmp_path / "x")) == records(str(tmp_path / "y"))
