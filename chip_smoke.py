@@ -70,7 +70,21 @@ Phases (any failure exits non-zero, and no result line is printed):
     density and syncmers);
 12. the syncmer breakdown: torch.profiler over one [512, 24576] batch of
     the count-path extraction under --syncmers, device time by torch op
-    and the fused kernel's share.
+    and the fused kernel's share;
+13. the branch legs: branches the CPU tests force, forced on the card
+    with existing knobs, cuda = cpu, each with the stat that shows it was
+    taken: the device key catalog's spill, `DeviceNodeCounter.grow`, rows
+    re-extracted on the host by the streaming engine, a tile over its
+    capacity, and a key group over the device join's G_SLOTS;
+14. the tools (the reference's second binary and utils/ scripts):
+    magic-simplify of the raw parity leg's cuda and cpu graphs (equal
+    contig bytes), of the raw chunked main leg step by step on the native
+    gfa_asm engine (contig count, N50, size against the genome), and
+    multik through the CLI: on the card over the parity corpus (rounds k =
+    10, 15, 20, 25, each launching nthash_select; the launch count is set
+    to 0 just before and read just after), and on a 2 Mbp corpus whose
+    103 kb contig is fed back, on the card and with --device cpu, the same
+    final contigs.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -1262,6 +1276,344 @@ def syncmer_breakdown(tmp: str, Params) -> dict:
         top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
 
 
+def _write_fasta(path: str, seqs) -> str:
+    with open(path, "wb") as f:
+        for i, s in enumerate(seqs):
+            f.write(b">r%d\n" % i + s + b"\n")
+    return path
+
+
+def _sample_reads(np, rng, genome, n: int, read_len: int):
+    """n error-free reads of read_len bases at uniform starts of genome
+    (uint8 codes 0..3), as ASCII bytes."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    starts = rng.integers(0, genome.size - read_len, n)
+    return [acgt[genome[s0 : s0 + read_len]].tobytes() for s0 in starts]
+
+
+def write_branch_inputs(tmp: str, np, p) -> dict:
+    """Seeded inputs of the branch legs.  cap.fa: 100 reads of 4 kb, then
+    2,000 of 1.5 kb of the same 0.02 Mbp genome (the whole run sizes its
+    counter from the first hundred reads' mean length, so the estimate
+    falls short of the input).  hub.fa: 30x of 10 kb reads over 24 copies
+    of one 8 kb hub, each followed by its own 4 kb branch (one overlap key
+    with 24 successors, over the join's 16 group slots).  tandem.fa: one
+    1.35 Mbp record whose 0.25 Mbp tandem repeat of a 24-base unit selects
+    a minimizer of `p` every few bases (its tile overflows)."""
+    rng = np.random.default_rng(17)
+    out = {}
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    out["cap"] = _write_fasta(
+        os.path.join(tmp, "cap.fa"),
+        _sample_reads(np, rng, genome, 100, 4_000)
+        + _sample_reads(np, rng, genome, 2_000, 1_500))
+    hub = rng.integers(0, 4, 8_000).astype(np.uint8)
+    genome = np.concatenate([np.concatenate(
+        [hub, rng.integers(0, 4, 4_000).astype(np.uint8)])
+        for _ in range(24)])
+    out["hub"] = _write_fasta(
+        os.path.join(tmp, "hub.fa"),
+        _sample_reads(np, rng, genome, 30 * genome.size // 10_000, 10_000))
+    # a unit without homopolymers (also across its wrap), so HPC leaves the
+    # tandem as it is, that holds a selected l-mer
+    from rust_mdbg_tpu_torch.ops.minimizers import extract_density_np
+
+    while True:
+        unit = np.cumsum(rng.integers(1, 4, 24)).astype(np.uint8) % 4
+        if unit[0] != unit[-1] and len(extract_density_np(
+                np.tile(unit, 4), p.l, p.hash_bound)[0]):
+            break
+    region = np.tile(unit, 250_000 // 24)
+    genome = np.concatenate([rng.integers(0, 4, 800_000).astype(np.uint8),
+                             region,
+                             rng.integers(0, 4, 300_000).astype(np.uint8)])
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    out["tandem"] = os.path.join(tmp, "tandem.fa")
+    with open(out["tandem"], "wb") as f:
+        f.write(b">tandem\n" + acgt[genome].tobytes() + b"\n")
+    return out
+
+
+def branch_legs(tmp: str, Params, np) -> dict:
+    """Branches the CPU tests force and the card had not run, each forced
+    with knobs that exist and held cuda = cpu in .gfa bytes and .sequences
+    records, with the stat that shows the branch was taken:
+
+    - catalog_spill: MDBG_CHUNK_CAT_CAP at half the pre-HPC parity graph's
+      nodes, chunks of 256 reads: the device key catalog fills and spills
+      to the host join (no `catalog_rows` in the stats); against
+      prehpc_parity's CPU run;
+    - counter_grow: the whole run at k = 7, minabund 17 on cap.fa, whose read
+      estimate is below its reads: `DeviceNodeCounter.grow` (the stats'
+      `read_cap` above the plan's);
+    - host_rows: the --lmer-counts streaming leg with
+      max_minimizers_per_read 32: rows over their slots re-extracted on the
+      host (`host_rows` > 0); against scheme_parity's CPU run;
+    - tile_overflow: --reference on tandem.fa: a tile over its capacity
+      takes the exact host row (`tile_host_rows` 1);
+    - g_slots: pre-HPC hub.fa: a key group over G_SLOTS, the host join from
+      the permuted device catalog (`edge_join` host, `catalog_rows` set).
+    """
+    from rust_mdbg_tpu_torch.core import pipeline
+    from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    base = dict(k=21, l=14, density=0.003, min_kmer_abundance=2)
+    f = write_branch_inputs(tmp, np, Params(**base))
+    pre = Params(**base, reads_already_hpc=True)
+    out = {}
+
+    def leg(name, run, ref=None, env=None):
+        """run(device, prefix) -> stats, on the card and (without `ref`,
+        the prefix of a CPU run of the same input) on the CPU."""
+        t0 = time.perf_counter()
+        g, c = os.path.join(tmp, f"{name}_g"), os.path.join(tmp, f"{name}_c")
+        os.environ.update(env or {})
+        try:
+            before = kernels.nthash_select.launches
+            sg = run(DEVICE, g)
+            launched = kernels.nthash_select.launches - before
+            sc = run("cpu", c) if ref is None else None
+        finally:
+            for key in env or {}:
+                del os.environ[key]
+        _same_outputs(f"branch leg ({name}), cuda vs cpu", g, ref or c)
+        if launched <= 0 or sg["nb_nodes"] <= 0:
+            raise SystemExit(f"branch leg ({name}): {launched} launches, "
+                             f"{sg['nb_nodes']} nodes")
+        out[name] = dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
+                         kernel_launches=launched)
+        return sg, sc, out[name], t0
+
+    cap = max(1, len(read_records(os.path.join(tmp, "hc"))) // 2)
+    sg, _, o, t0 = leg(
+        "catalog_spill",
+        lambda dev, pfx: assemble_device_chunked(
+            os.path.join(tmp, "parity.fa"), pre, pfx, chunk_reads=256,
+            device=dev),
+        ref=os.path.join(tmp, "hc"), env={"MDBG_CHUNK_CAT_CAP": str(cap)})
+    o.update(cat_cap=cap, chunks=sg["nb_chunks"],
+             edge_join=sg.get("edge_join"),
+             catalog_rows=sg.get("catalog_rows"))
+    if sg.get("edge_join") != "host" or "catalog_rows" in sg:
+        raise SystemExit(f"branch leg (catalog_spill): no spill: {o}")
+    o["seconds"] = time.perf_counter() - t0
+    print(f"branch leg catalog_spill: {json.dumps(o)}", flush=True)
+
+    # k = 7: a window spans ~1.2 kb at this density, so the short reads
+    # hold windows
+    p17 = Params(**{**base, "k": 7, "min_kmer_abundance": 17})
+    planned = pipeline.plan_table(f["cap"], p17)["read_cap"]
+    sg, sc, o, t0 = leg("counter_grow", lambda dev, pfx: pipeline.assemble(
+        f["cap"], p17, pfx, device=dev))
+    o.update(reads=sg["nb_reads"], planned_read_cap=planned,
+             read_cap=sg.get("read_cap"), cpu_read_cap=sc.get("read_cap"))
+    if "phase1_nodes" not in sg or not (
+            planned < sg["nb_reads"] <= sg["read_cap"] == sc["read_cap"]):
+        raise SystemExit(f"branch leg (counter_grow): no grow: {o}")
+    o["seconds"] = time.perf_counter() - t0
+    print(f"branch leg counter_grow: {json.dumps(o)}", flush=True)
+
+    p = _set_paths(Params(**base, has_lmer_counts=True,
+                          max_minimizers_per_read=32),
+                   _lmer_counts_path=os.path.join(tmp, "lmers.txt"))
+    sg, _, o, t0 = leg("host_rows", lambda dev, pfx: pipeline.assemble(
+        os.path.join(tmp, "parity.fa"), p, pfx, device=dev),
+        ref=os.path.join(tmp, "lmer_counts_c"))
+    o.update(reads=sg["nb_reads"], host_rows=sg["host_rows"])
+    if not 0 < sg["host_rows"] < sg["nb_reads"]:
+        raise SystemExit(f"branch leg (host_rows): {o}")
+    o["seconds"] = time.perf_counter() - t0
+    print(f"branch leg host_rows: {json.dumps(o)}", flush=True)
+
+    pref = Params(**{**base, "min_kmer_abundance": 1}, reference=True,
+                  batch_reads=1)
+    sg, sc, o, t0 = leg("tile_overflow", lambda dev, pfx: pipeline.assemble(
+        f["tandem"], pref, pfx, device=dev))
+    o.update(tiled_rows=sg["tiled_rows"], tile_host_rows=sg["tile_host_rows"])
+    if not (sg["tiled_rows"] == sc["tiled_rows"] == 1
+            and sg["tile_host_rows"] == sc["tile_host_rows"] == 1):
+        raise SystemExit(f"branch leg (tile_overflow): {o}")
+    o["seconds"] = time.perf_counter() - t0
+    print(f"branch leg tile_overflow: {json.dumps(o)}", flush=True)
+
+    sg, sc, o, t0 = leg("g_slots", lambda dev, pfx: assemble_device_chunked(
+        f["hub"], pre, pfx, device=dev))
+    o.update(edge_join=sg.get("edge_join"),
+             catalog_rows=sg.get("catalog_rows"))
+    if not (sg.get("edge_join") == sc.get("edge_join") == "host"
+            and sg.get("catalog_rows") == sg["nb_nodes"]):
+        raise SystemExit(f"branch leg (g_slots): no G_SLOTS fall-back: {o}")
+    o["seconds"] = time.perf_counter() - t0
+    print(f"branch leg g_slots: {json.dumps(o)}", flush=True)
+    return out
+
+
+def contig_stats(fa: str, genome_size: int) -> dict:
+    """Contig count, N50, total and longest length of a FASTA of contigs,
+    and the total against the genome's size."""
+    from rust_mdbg_tpu_torch.io.fastx import read_records as fasta_records
+
+    lens = sorted((len(s) for _, s in fasta_records(fa)), reverse=True)
+    total, acc, n50 = sum(lens), 0, 0
+    for n in lens:
+        acc += n
+        if 2 * acc >= total:
+            n50 = n
+            break
+    return dict(contigs=len(lens), n50=n50, total_bp=total,
+                longest=lens[0] if lens else 0,
+                total_over_genome=total / genome_size)
+
+
+def timed_magic_simplify(prefix: str) -> dict:
+    """tools/magic_simplify on prefix, with the seconds of each step (the
+    module's own step functions, wrapped for the call) and the gfa_asm
+    engine each simplification round ran on."""
+    from rust_mdbg_tpu_torch.tools import gfa_asm
+    from rust_mdbg_tpu_torch.tools import magic_simplify as ms
+
+    steps: list = []
+    engines: list = []
+    names = dict(run_ops_file="round", break_loops="break_loops",
+                 to_basespace="to_basespace", gfa2fasta="gfa2fasta")
+    orig = {name: getattr(ms, name) for name in names}
+
+    def timed(name):
+        def call(*args, **kw):
+            if name == "run_ops_file":
+                engines.append(gfa_asm.engine_choice(kw.get("engine")))
+            t0 = time.perf_counter()
+            res = orig[name](*args, **kw)
+            label = names[name]
+            if label == "round":
+                label = f"round{len(engines)}"
+            steps.append((label, time.perf_counter() - t0))
+            return res
+        return call
+
+    for name in names:
+        setattr(ms, name, timed(name))
+    t0 = time.perf_counter()
+    try:
+        ms.magic_simplify(prefix)
+    finally:
+        for name, fn in orig.items():
+            setattr(ms, name, fn)
+    wall = time.perf_counter() - t0
+    if engines != ["native"] * len(engines) or not engines:
+        raise SystemExit(f"magic-simplify: gfa_asm ran on {engines}, not the "
+                         "native engine")
+    return dict(seconds=wall, steps=steps, gfa_asm_engines=engines)
+
+
+def multik_cli(workdir: str, reads: str, device: str | None) -> dict:
+    """`python -m rust_mdbg_tpu_torch multik READS mk 8 [--device cpu]`
+    through the CLI's main in workdir (multik's clean-up globs the cwd),
+    with each round's k, seconds and nthash_select launches."""
+    from rust_mdbg_tpu_torch import cli
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.tools import multik
+
+    rounds: list = []
+    orig = multik._assemble_round
+
+    def counted(cur_reads, k, *args, **kw):
+        before = kernels.nthash_select.launches
+        t0 = time.perf_counter()
+        orig(cur_reads, k, *args, **kw)
+        rounds.append(dict(k=k, seconds=time.perf_counter() - t0,
+                           nthash_select_launches=(
+                               kernels.nthash_select.launches - before)))
+
+    os.makedirs(workdir)
+    cwd = os.getcwd()
+    multik._assemble_round = counted
+    os.chdir(workdir)
+    t0 = time.perf_counter()
+    try:
+        argv = ["multik", os.path.abspath(reads), "mk", "8"]
+        rc = cli.main(argv + (["--device", device] if device else []))
+    finally:
+        os.chdir(cwd)
+        multik._assemble_round = orig
+    if rc != 0:
+        raise SystemExit(f"multik ({device or 'cuda'}): exit code {rc}")
+    return dict(seconds=time.perf_counter() - t0, rounds=rounds,
+                final=os.path.join(workdir, "mk-final.msimpl.fa"))
+
+
+def tools_phase(tmp: str, syn: dict) -> dict:
+    """The tool subcommands on the port's graphs: (1) magic-simplify of
+    the raw parity leg's cuda and cpu outputs, byte-equal contigs; (2)
+    magic-simplify of the raw chunked main leg, step by step, on the native
+    gfa_asm engine, with the port's first assembly numbers; (3) multik
+    through the CLI on the card over the parity corpus (rounds k = 10, 15,
+    20, 25), nthash_select launched in every round, and on a small corpus
+    on the card and with --device cpu, the same final contigs."""
+    from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    out = {}
+    t0 = time.perf_counter()
+    for side in ("pg", "pc"):
+        timed_magic_simplify(os.path.join(tmp, side))
+    for ext in ("msimpl.gfa", "msimpl.fa"):
+        a, b = (open(os.path.join(tmp, f"{side}.{ext}"), "rb").read()
+                for side in ("pg", "pc"))
+        if a != b or not a:
+            raise SystemExit(f"tools (parity): {ext} differs between cuda "
+                             "and cpu")
+    out["parity"] = contig_stats(os.path.join(tmp, "pg.msimpl.fa"), 500_000)
+    out["parity"]["seconds"] = time.perf_counter() - t0
+    print(f"tools parity magic-simplify: {json.dumps(out['parity'])}",
+          flush=True)
+
+    ms = timed_magic_simplify(os.path.join(tmp, "main"))
+    ms.update(contig_stats(os.path.join(tmp, "main.msimpl.fa"),
+                           syn["genome_size"]))
+    ms["genome_bp"] = syn["genome_size"]
+    out["main"] = ms
+    print(f"tools main magic-simplify: {json.dumps(ms)}", flush=True)
+
+    # no --device: the CLI's default, the card (a CPU rehearsal of this
+    # script names its DEVICE)
+    card = None if DEVICE == "cuda" else DEVICE
+    kernels.nthash_select.launches = 0
+    mk = multik_cli(os.path.join(tmp, "multik_parity"),
+                    os.path.join(tmp, "parity.fa"), card)
+    launches = kernels.nthash_select.launches
+    mk.update(contig_stats(mk.pop("final"), 500_000),
+              nthash_select_launches=launches)
+    if [r["k"] for r in mk["rounds"]] != [10, 15, 20, 25] or \
+            min(r["nthash_select_launches"] for r in mk["rounds"]) <= 0:
+        raise SystemExit(f"multik (parity): rounds {mk['rounds']}")
+    out["multik"] = mk
+    print(f"tools multik: {json.dumps(mk)}", flush=True)
+
+    t0 = time.perf_counter()
+    small = os.path.join(tmp, "multik_small.fa")
+    write_synthetic_reads(small, genome_mbp=0.105, coverage=20,
+                          read_len=6000, error_rate=0, seed=3)
+    runs = {name: multik_cli(os.path.join(tmp, f"multik_{name}"), small,
+                             dev)
+            for name, dev in (("cuda", card), ("cpu", "cpu"))}
+    fa = {dev: open(r["final"], "rb").read() for dev, r in runs.items()}
+    if fa["cuda"] != fa["cpu"] or not fa["cuda"]:
+        raise SystemExit("multik (small): -final.msimpl.fa differs between "
+                         "cuda and cpu")
+    if len(runs["cuda"]["rounds"]) != 2 or min(
+            r["nthash_select_launches"] for r in runs["cuda"]["rounds"]) <= 0:
+        raise SystemExit(f"multik (small): rounds {runs['cuda']['rounds']}")
+    out["multik_small"] = dict(
+        contig_stats(runs["cuda"]["final"], 105_000),
+        rounds={dev: r["rounds"] for dev, r in runs.items()},
+        seconds=time.perf_counter() - t0)
+    print(f"tools multik cuda = cpu: {json.dumps(out['multik_small'])}",
+          flush=True)
+    return out
+
+
 def _short(kernel: str) -> str:
     for junk in ("void ", "at::native::", "(anonymous namespace)::",
                  "at::cuda::detail::"):
@@ -1359,6 +1711,18 @@ def main() -> int:
                   flush=True)
         sb = syncmer_breakdown(tmp, Params)
         print(f"syncmer breakdown: {json.dumps(sb)}", flush=True)
+
+        t0 = time.perf_counter()
+        branches = branch_legs(tmp, Params, np)
+        branches["seconds"] = time.perf_counter() - t0
+        print(f"branch legs: {json.dumps(branches)}", flush=True)
+        t0 = time.perf_counter()
+        kernels.syncmer_select.launches = 0
+        tools = tools_phase(tmp, syn)
+        tools["seconds"] = time.perf_counter() - t0
+        if kernels.syncmer_select.launches:
+            raise SystemExit("tools: syncmer_select launched off its path")
+        print(f"tools: {json.dumps(tools)}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1367,7 +1731,8 @@ def main() -> int:
         **{f"whole_{leg}": w["nthash_select_launches"]
            for leg, w in whole.items()},
         **{f"scheme_{leg}": w["nthash_select_launches"]
-           for leg, w in scheme.items()})
+           for leg, w in scheme.items()},
+        multik=tools["multik"]["nthash_select_launches"])
     rows[1]["launches_by_leg"] = {
         f"scheme_{leg}": w["syncmer_select_launches"]
         for leg, w in scheme.items()}

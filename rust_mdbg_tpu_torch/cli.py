@@ -5,7 +5,7 @@
         [--syncmers [-s S]] [--lmer-counts F] [--uhs F] [--lcp F]
         [--reference] [--read-stats F] [--engine device|host]
         [--device cuda|cpu]
-    python -m rust_mdbg_tpu_torch synth-reads out.fa [--genome-mbp G] ...
+    python -m rust_mdbg_tpu_torch TOOL ...
 
 The parser takes every flag of `python -m rust_mdbg_tpu` and maps it onto
 the same Params: -n, -t, --distance, --correction-threshold, --threads,
@@ -14,11 +14,17 @@ the same Params: -n, -t, --distance, --correction-threshold, --threads,
 there.  The run goes through core/pipeline.assemble, which routes as the
 JAX package does: density and syncmer runs to the chunked driver
 (--minabund up to 16) or the whole-run device path (above it), everything
-else to the streaming engine.  Error correction (--error-correct without
---reference), --restart-from-postcor, --mesh, --multihost and every tool
-subcommand but synth-reads select paths this port does not run yet: they
-fail with a "not ported yet" error naming ROADMAP.md instead of running
-something else.
+else to the streaming engine.
+
+TOOL is one of the JAX package's subcommands (tools/): to-basespace,
+gfa-asm, magic-simplify, simplify-meta, multik (which assembles on the card
+unless given --device cpu), gfa2fasta, break-loops, gfa-complete,
+hpc-compress, gfa-strip, extreme-simplify, synth-reads.
+
+Error correction (--error-correct without --reference),
+--restart-from-postcor, --mesh, --multihost and the subcommands ec-scale
+and quality-n50 select paths this port does not run yet: they fail with a
+"not ported yet" error naming ROADMAP.md instead of running something else.
 """
 
 from __future__ import annotations
@@ -37,12 +43,15 @@ _NOT_PORTED = {
     "mesh": "--mesh", "multihost": "--multihost",
 }
 
-#: subcommands of the JAX package's CLI (its tools/) not ported yet
+#: subcommands of the JAX package's CLI, run by tools.dispatch
 _TOOLS = (
     "to-basespace", "gfa-asm", "magic-simplify", "multik", "gfa2fasta",
     "break-loops", "simplify-meta", "gfa-complete", "hpc-compress",
-    "gfa-strip", "extreme-simplify", "ec-scale", "quality-n50",
+    "gfa-strip", "extreme-simplify", "synth-reads",
 )
+
+#: subcommands of the JAX package's CLI not ported yet
+_TOOLS_NOT_PORTED = ("ec-scale", "quality-n50")
 
 
 def _engine(name: str) -> str:
@@ -55,7 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rust_mdbg_tpu_torch",
         description="Minimizer-space de Bruijn graph (mdBG) assembler, "
-                    "PyTorch/CUDA port.")
+                    "PyTorch/CUDA port.",
+        epilog="Subcommands: " + ", ".join(_TOOLS) + ".  Not ported yet: "
+               + ", ".join(_TOOLS_NOT_PORTED) + ", --error-correct (without "
+               "--reference), --restart-from-postcor, --mesh, --multihost.")
     p.add_argument("reads", help="input FASTA/FASTQ (.gz/.lz4 ok)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("-p", "--prefix", default=None)
@@ -173,11 +185,11 @@ def params_from_args(args) -> tuple[Params, str]:
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "synth-reads":
-        from .experiments.synth import main as synth_main
-
-        return synth_main(argv[1:])
     if argv and argv[0] in _TOOLS:
+        from .tools import dispatch
+
+        return dispatch(argv[0], argv[1:])
+    if argv and argv[0] in _TOOLS_NOT_PORTED:
         raise SystemExit(
             f"error: {argv[0]} is not ported yet (see ROADMAP.md)")
     args = build_parser().parse_args(argv)

@@ -184,6 +184,10 @@ class NativeReader:
             yield c
 
 
+#: name of chunks_prefetched's parse thread
+PUMP_THREAD = "fastx-prefetch"
+
+
 def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
                       mean_len_hint: int = 0, depth: int = 1):
     """Iterate NativeChunks with a background parse thread so file parsing
@@ -194,17 +198,25 @@ def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
     chunks to two (one being consumed, one being built) instead of
     1 + depth + 1 — at HiFi scale each chunk is ~2 GB of codes+raw, so the
     extra buffered chunk was pure RSS with no overlap benefit (the native
-    parse is faster than chunk consumption)."""
+    parse is faster than chunk consumption).
+
+    However the consumer leaves (the end of the input, a `break`, an
+    exception), the parse thread (named PUMP_THREAD) is stopped and joined
+    before the native reader is closed: closing it under a running parse
+    crashes the process."""
     rdr = NativeReader(path, chunk_reads, max_len,
                        mean_len_hint=mean_len_hint)
     q: queue.Queue = queue.Queue(maxsize=depth)
     build_tokens = threading.Semaphore(depth)
+    stop = threading.Event()
     _SENTINEL = object()
 
     def pump():
         try:
             while True:
                 build_tokens.acquire()
+                if stop.is_set():
+                    return
                 c = rdr.next_chunk()
                 if c is None:
                     q.put(_SENTINEL)
@@ -213,7 +225,7 @@ def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
         except BaseException as e:  # surface parse errors on the consumer
             q.put(e)
 
-    t = threading.Thread(target=pump, daemon=True)
+    t = threading.Thread(target=pump, name=PUMP_THREAD, daemon=True)
     t.start()
     try:
         while True:
@@ -225,4 +237,11 @@ def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
                 raise item
             yield item
     finally:
+        # tokens bound the queue to `depth` items, so the pump never blocks
+        # in put(); the extra token wakes it if it waits for one
+        stop.set()
+        build_tokens.release()
+        while not q.empty():
+            q.get_nowait()
+        t.join()
         rdr.close()

@@ -11,6 +11,7 @@ port's."""
 
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from rust_mdbg_tpu.params import Params as JaxParams
 from rust_mdbg_tpu_torch import cli
 from rust_mdbg_tpu_torch.core import pipeline
 from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
+from rust_mdbg_tpu_torch.io import fastx_native
 from rust_mdbg_tpu_torch.params import Params
 
 from torch_corpus import gfa_bytes, records, write_hpc_reads, write_raw_reads
@@ -202,3 +204,68 @@ def test_cli_synth_reads_matches_jax(tmp_path):
     with open(a, "rb") as fa, open(b, "rb") as fb:
         data = fa.read()
         assert data == fb.read() and data.count(b">") == 66
+
+
+def _pump_threads():
+    return [t for t in threading.enumerate()
+            if t.name == fastx_native.PUMP_THREAD]
+
+
+def _leave_early(path, how):
+    """Take one chunk of `path` from the prefetcher and leave the loop by
+    `how`; returns the pump thread that ran and the first chunk's reads."""
+    gen = fastx_native.chunks_prefetched(path, 8, 1500)
+    first = next(gen)
+    (t,) = _pump_threads()
+    if how == "break":
+        gen.close()  # what a `for ... break` does once the loop lets go
+    else:
+        with pytest.raises(KeyError):
+            try:
+                raise KeyError("consumer fault")
+            finally:
+                gen.close()
+    return t, first.n
+
+
+@pytest.mark.parametrize("how", ["break", "raise"])
+def test_prefetcher_joins_its_parse_thread(corpora, how):
+    """Leaving chunks_prefetched early by a break or an exception stops and
+    joins the parse thread before the native reader closes; fifty such
+    loops in a row do not crash the process."""
+    if not fastx_native.native_ingest_supported(corpora["raw"]):
+        pytest.fail("native FASTA ingest unavailable")
+    for _ in range(50):
+        t, n = _leave_early(corpora["raw"], how)
+        assert n == 8
+        assert not t.is_alive()
+        assert not _pump_threads()
+
+
+def test_prefetcher_break_and_raise_in_a_for_loop(corpora):
+    """The same through real for-loops: a `break` after the first chunk,
+    and an exception raised in the loop body."""
+    for _ in range(50):
+        for c in fastx_native.chunks_prefetched(corpora["raw"], 8, 1500):
+            (t,) = _pump_threads()
+            break
+        t.join(timeout=10)  # the generator is closed when it is collected
+        assert not t.is_alive()
+        with pytest.raises(KeyError):
+            for c in fastx_native.chunks_prefetched(corpora["raw"], 8, 1500):
+                (t,) = _pump_threads()
+                raise KeyError("consumer fault")
+        t.join(timeout=10)
+        assert not t.is_alive()
+
+
+def test_prefetcher_full_pass_unchanged(corpora):
+    """The normal end: every chunk in order, the same reads as the plain
+    reader, and the thread gone once the sentinel is reached."""
+    plain = fastx_native.NativeReader(corpora["raw"], 8, 1500)
+    want = [(c.n, c.lengths.tolist(), bytes(c.raw)) for c in plain]
+    plain.close()
+    got = [(c.n, c.lengths.tolist(), bytes(c.raw))
+           for c in fastx_native.chunks_prefetched(corpora["raw"], 8, 1500)]
+    assert got == want and len(want) > 40
+    assert not _pump_threads()
