@@ -10,7 +10,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    started together);
 2. each kernel against its plain torch version on the card, with exact
    (integer) comparison: at the shape the main path gives it, timed with
-   CUDA events after warm-up, and at small ragged shapes (nthash_select: l
+   CUDA events after warm-up (the EC kernels in phase 15, at their legs'
+   own shapes), and at small ragged shapes (nthash_select: l
    from 1 to 64, odd L, an unaligned row slice, edge rows, N and code 5 in
    the tile halos; syncmer_select: s = 0, l = 32, w = 1, odd L, B = 1, L
    below w, an unaligned row slice, and rows of one base, short repeats
@@ -84,7 +85,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     10, 15, 20, 25, each launching nthash_select; the launch count is set
     to 0 just before and read just after), and on a 2 Mbp corpus whose
     103 kb contig is fed back, on the card and with --device cpu, the same
-    final contigs.
+    final contigs;
+15. error correction: the EC kernels against their plain versions in
+    phase 2 (semiglobal_scores: T = 1, Q = 1, empty queries, queries past
+    the template, rows past shared memory; poa_dp: 24 grown graphs, in-
+    degree > 8, more than 1,024 nodes, queries over 256 and over 1,024
+    symbols, a one-node graph, B = 1, and the Alignments against the host
+    DP); EC parity legs cuda = cpu in .ec_data, .postcor.ec_data,
+    .poa.ec_data, .gfa and .sequences bytes (the sequential driver with
+    triage, the lockstep driver, --ec-procs 2, --restart-from-postcor);
+    then two EC main legs through `ec-scale` on the card (10 kb reads,
+    30x, 0.3 % substitutions, k=8 l=10 d=0.02): the sequential driver
+    with triage on a 0.1 Mbp genome and the lockstep driver
+    (--device-poa, --ec-chunk 64) on 1 Mbp, each with its identity before
+    and after, error-correct and reingest seconds, reads/s, the shapes
+    each kernel saw and its launches; each kernel timed at the widest
+    launch of its leg, against its plain version there.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -1614,6 +1630,502 @@ def tools_phase(tmp: str, syn: dict) -> dict:
     return out
 
 
+# --- error correction (the EC drivers and their two kernels) ---------------
+
+#: ec-scale's parameters (experiments/ec_scale.py)
+EC_KW = dict(k=8, l=10, density=0.02, min_kmer_abundance=2, n=2,
+             error_correct=True)
+
+#: genome sizes of the EC main legs (10 kb reads at 30x): the lockstep
+#: driver at 1 Mbp (3,000 reads), the sequential driver, whose host DP per
+#: candidate is slower, at 0.1 Mbp
+EC_GENOME_MBP = 1.0
+EC_SEQ_GENOME_MBP = 0.1
+
+
+def _ec_alphabet(np, rng, n: int):
+    """n distinct u64 symbols (as Python ints), some above 2^63."""
+    return [int(x) for x in rng.integers(1, 1 << 64, n, dtype=np.uint64)]
+
+
+def _scores_case(np, torch, seed: int, T: int, lens, n_sym: int):
+    """Template and ragged queries (uint64 padded) on the card: a small
+    alphabet makes ties everywhere; half the queries copy a stretch of the
+    template with substitutions, so real alignments occur."""
+    from rust_mdbg_tpu_torch.ops import align, u64
+
+    rng = np.random.default_rng(seed)
+    sym = _ec_alphabet(np, rng, n_sym)
+    tmpl = [sym[i] for i in rng.integers(0, n_sym, T)]
+    queries = []
+    for i, n in enumerate(lens):
+        if i % 2 and T:
+            a = int(rng.integers(0, T))
+            q = (tmpl[a:] + tmpl[:a])[:n]
+            q += [sym[j] for j in rng.integers(0, n_sym, n - len(q))]
+            for j in rng.integers(0, max(1, n), max(1, n // 20)):
+                if j < len(q):
+                    q[j] = sym[int(rng.integers(0, n_sym))]
+        else:
+            q = [sym[j] for j in rng.integers(0, n_sym, n)]
+        queries.append(q)
+    qs, qlens = align.pad_queries(queries)
+    return (u64.from_numpy(np.asarray(tmpl, dtype=np.uint64), "cuda"),
+            u64.from_numpy(qs, "cuda"),
+            torch.from_numpy(qlens.astype(np.int32)).cuda())
+
+
+def check_semiglobal_scores(torch, np) -> dict:
+    """The triage scorer against its plain version at small and edge
+    shapes, every score exactly: T = 1, Q = 1, empty queries, queries
+    longer than the template, B not a multiple of the block's four warps,
+    rows past shared memory (Q = 5,000: the global-row path) and the EC
+    shape (B = 160, T and Q near 300)."""
+    from rust_mdbg_tpu_torch.ops import align, kernels
+
+    cases = {}
+    specs = [(1, 1, [1, 0, 3], 4), (7, 2, [1, 9, 20, 0, 7], 3),
+             (3, 40, [1, 40, 100, 0, 2], 6), (4, 300, [300] * 160, 50),
+             (5, 260, list(range(1, 321, 2)), 9), (6, 17, [5000, 17, 4], 5),
+             (8, 0, [3, 0], 4)]
+    for seed, T, lens, n_sym in specs:
+        args = _scores_case(np, torch, seed, T, lens, n_sym)
+        got = kernels.semiglobal_scores(*args)
+        want = align.semiglobal_scores_plain(*args)
+        cases[f"T={T} B={len(lens)} Q={max(lens)} alphabet={n_sym}"] = \
+            int((got != want).sum())
+    return dict(name="semiglobal_scores", mismatches=sum(cases.values()),
+                cases=cases)
+
+
+def _grow_poa(np, rng, sym, tlen: int, n_weave: int, p_sub=0.15,
+              p_ind=0.08, hub=False):
+    """A POA graph grown as tests/test_poa_device.py grows them: a random
+    template woven with mutated copies (hub: short queries ending in one
+    of three symbols, so a node collects many predecessors)."""
+    from rust_mdbg_tpu_torch.models.poa import PoaGraph
+
+    def mut(seq):
+        out = []
+        for x in seq:
+            r = rng.random()
+            if r < p_sub:
+                out.append(sym[int(rng.integers(len(sym)))])
+            elif r < p_sub + p_ind / 2:
+                continue
+            elif r < p_sub + p_ind:
+                out += [x, sym[int(rng.integers(len(sym)))]]
+            else:
+                out.append(x)
+        return out or [sym[0]]
+
+    template = [sym[int(rng.integers(len(sym)))] for _ in range(tlen)]
+    g = PoaGraph(template, "A" * (4 * tlen + 8), list(range(0, 4 * tlen, 4)))
+    for w in range(n_weave):
+        q = mut(template)
+        if hub:
+            q = [sym[int(rng.integers(len(sym)))] for _ in range(3)] + \
+                [sym[w % 3]] + q[-2:]
+        g.add_alignment(g.semiglobal(q), q, "C" * (4 * len(q) + 8),
+                        list(range(0, 4 * len(q), 4)))
+    return g, template, mut
+
+
+def _dp_mismatches(torch, got, want) -> int:
+    return sum(int((a != b).sum()) + abs(a.numel() - b.numel())
+               for a, b in zip(got, want))
+
+
+def _dp_args(batch: dict):
+    return [batch[k] for k in ("node_off", "wts", "topo", "pred_off",
+                               "pred_idx", "term", "q_off", "queries")]
+
+
+def check_poa_dp(torch, np) -> dict:
+    """The POA DP kernel against its plain version, every output exactly
+    (scores, ystart, op counts, op rows): 24 grown graphs in one launch
+    (the JAX package's fuzz), a node of in-degree > 8, a graph of more
+    than 1,024 nodes with a query over 256 (and one over 1,024: rows in
+    segments), a one-node graph, B = 1; and each graph's Alignment
+    against the host DP (PoaGraph.semiglobal)."""
+    from rust_mdbg_tpu_torch.ops import kernels, poa_device
+
+    rng = np.random.default_rng(3)
+    sym = _ec_alphabet(np, rng, 40)
+    fuzz, fq = [], []
+    for _ in range(24):
+        g, t, mut = _grow_poa(np, rng, sym, int(rng.integers(4, 60)),
+                              int(rng.integers(0, 6)))
+        fuzz.append(g)
+        fq.append(mut(t))
+    hub, ht, hmut = _grow_poa(np, rng, sym[:12], 12, 40, hub=True)
+    big, bt, bmut = _grow_poa(np, rng, sym, 400, 12, p_sub=0.3)
+    one, _, _ = _grow_poa(np, rng, sym, 1, 0)
+    batches = {
+        "fuzz B=24": (fuzz, fq),
+        "hub": ([hub, hub], [hmut(ht), ht * 3]),
+        "big": ([big, big, big], [bmut(bt), bt, (bt * 4)[:1500]]),
+        "one node B=1": ([one], [[one.weights[0]]]),
+        "one node, other symbol": ([one], [[sym[5], sym[6]]]),
+    }
+    cases, host = {}, 0
+    shapes = dict(max_nodes=len(big.weights),
+                  max_in_degree=max(len(p) for p in hub.pred))
+    for name, (gs, qs) in batches.items():
+        t = poa_device.batch_to_device(poa_device.export_batch(gs, qs),
+                                       "cuda")
+        got = kernels.poa_dp(*_dp_args(t))
+        want = poa_device.poa_dp_plain(*_dp_args(t))
+        cases[name] = _dp_mismatches(torch, got, want)
+        alns = poa_device.poa_semiglobal_device(gs, qs, device="cuda")
+        host += sum((a.score, a.ystart, a.operations) !=
+                    (h.score, h.ystart, h.operations)
+                    for a, h in zip(alns, (g.semiglobal(q)
+                                           for g, q in zip(gs, qs))))
+    cases["Alignments against the host DP"] = host
+    if shapes["max_nodes"] <= 1024 or shapes["max_in_degree"] <= 8:
+        raise SystemExit(f"poa_dp check: graphs too small {shapes}")
+    return dict(name="poa_dp", mismatches=sum(cases.values()),
+                cases=cases, **shapes)
+
+
+class EcKernelLog:
+    """Wraps the two EC kernels' wrappers for one leg: records the shape
+    of every launch and keeps the inputs of the widest one (for the
+    timing and the check at the leg's own shapes).  The launch counts
+    stay the wrappers' own.  Also sums the host seconds of the EC
+    driver's stages (each kernel call synchronised: launch and device
+    time; the lockstep DP's CSR export and op decoding; the host DP,
+    weave, recruitment and consensus) — the breakdown of the
+    `error-correct` phase."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.scores = []   # (B, T, Q, sum of query lengths)
+        self.dp = []       # (G, nodes list, max in-degree list, m list)
+        self.widest = {}
+        self.seconds = {}
+        self._patched = []
+
+    def _patch(self, owner, attr, key, record=None):
+        import torch
+
+        orig = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            if isinstance(out, tuple) and out and \
+                    isinstance(out[0], torch.Tensor) and out[0].is_cuda or \
+                    isinstance(out, torch.Tensor) and out.is_cuda:
+                torch.cuda.synchronize()
+            self.seconds[key] = self.seconds.get(key, 0.0) + \
+                time.perf_counter() - t0
+            if record is not None:
+                record(*a)
+            return out
+
+        self._patched.append((owner, attr, orig))
+        setattr(owner, attr, timed)
+        return timed
+
+    def _record_scores(self, template, queries, qlens, *rest):
+        B, Q = queries.shape
+        self.scores.append((B, template.shape[0], Q, int(qlens.sum())))
+        if B >= self.widest.get("scores_B", -1):
+            self.widest.update(scores_B=B, scores=(template, queries, qlens))
+
+    def _record_dp(self, *args):
+        node_off, pred_off, q_off = (args[0].cpu(), args[3].cpu(),
+                                     args[6].cpu())
+        n = (node_off[1:] - node_off[:-1]).tolist()
+        m = (q_off[1:] - q_off[:-1]).tolist()
+        deg = (pred_off[1:] - pred_off[:-1]).tolist()
+        pmax = [max(deg[a:b]) for a, b in zip(node_off[:-1].tolist(),
+                                               node_off[1:].tolist())]
+        self.dp.append((len(n), n, pmax, m))
+        cells = sum(x * y for x, y in zip(n, m))
+        if cells >= self.widest.get("dp_cells", -1):
+            self.widest.update(dp_cells=cells, dp=args)
+
+    def __enter__(self):
+        from rust_mdbg_tpu_torch.models import correct
+        from rust_mdbg_tpu_torch.models.poa import PoaGraph
+        from rust_mdbg_tpu_torch.ops import poa_device
+
+        k = self.kernels
+        # the wrappers' bodies count into the module-level name, which is
+        # the recorder while the leg runs: the counts carry over both ways
+        for name, rec in (("semiglobal_scores", self._record_scores),
+                          ("poa_dp", self._record_dp)):
+            orig = getattr(k, name)
+            self._patch(k, name, name, rec).launches = orig.launches
+        for owner, attr, key in (
+                (poa_device, "export_batch", "dp_export"),
+                (poa_device, "decode_ops", "dp_decode"),
+                (PoaGraph, "semiglobal", "host_dp"),
+                (PoaGraph, "add_alignment", "weave"),
+                (correct, "_recruit", "recruit"),
+                (correct, "_finish", "consensus_finish")):
+            self._patch(owner, attr, key)
+        return self
+
+    def __exit__(self, *exc):
+        k = self.kernels
+        for owner, attr, orig in reversed(self._patched):
+            if owner is k:
+                orig.launches = getattr(k, attr).launches
+            setattr(owner, attr, orig)
+        self._patched = []
+
+    def summary(self) -> dict:
+        import numpy as np
+
+        def dist(xs):
+            if not xs:
+                return None
+            a = np.asarray(xs)
+            return dict(min=int(a.min()), p50=float(np.median(a)),
+                        p90=float(np.percentile(a, 90)), max=int(a.max()),
+                        mean=float(a.mean()))
+
+        return dict(
+            scores_launches=len(self.scores),
+            scores_B=dist([s[0] for s in self.scores]),
+            scores_T=dist([s[1] for s in self.scores]),
+            scores_Q=dist([s[2] for s in self.scores]),
+            dp_launches=len(self.dp),
+            dp_pairs=dist([d[0] for d in self.dp]),
+            dp_N=dist([x for d in self.dp for x in d[1]]),
+            dp_P=dist([x for d in self.dp for x in d[2]]),
+            dp_M=dist([x for d in self.dp for x in d[3]]))
+
+
+def time_semiglobal_scores(torch, np, args) -> dict:
+    """The scorer at the widest launch of the sequential EC leg: kernel =
+    plain there, CUDA-event times, and its bound.  Bytes: the template
+    (8 B a symbol), the padded queries (8 B a slot) and lengths (4 B) read
+    once, 4 B a score written.  Operations: T x sum(qlen) cells, ~6 32-bit
+    operations a cell (two adds, two maxes for the candidates, the keyed
+    subtract and the scan's max)."""
+    from rust_mdbg_tpu_torch.ops import align, kernels
+
+    template, queries, qlens = args
+    got = kernels.semiglobal_scores(*args)
+    want = align.semiglobal_scores_plain(*args)
+    mism = int((got != want).sum())
+    ms = cuda_time_ms(lambda: kernels.semiglobal_scores(*args), 200)
+    plain_ms = cuda_time_ms(lambda: align.semiglobal_scores_plain(*args), 3)
+    B, Q = queries.shape
+    T = template.shape[0]
+    cells = T * int(qlens.sum())
+    nbytes = 8 * T + 8 * B * Q + 4 * B + 4 * B
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * cells / INT32_OPS_PER_S * 1e3
+    return dict(shape=dict(B=B, T=T, Q=Q, cells=cells), mismatches=mism,
+                max_abs_err=float((got - want).abs().max()) if B else 0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+                bound_share=max(t_bytes, t_ops) / ms)
+
+
+def time_poa_dp(torch, np, args) -> dict:
+    """The POA DP at the widest launch of the lockstep EC leg: kernel =
+    plain there, CUDA-event time, the plain version's time (one call:
+    N steps of torch ops and a host traceback), and its bound.  Bytes:
+    the CSR inputs read once (8 B a weight and query symbol, 4 B a topo
+    entry, pred offset and pred, 1 B a terminal flag, 4 B offsets), the
+    outputs written once (12 B a pair, 12 B an op row).  Operations: each
+    cell of each pair, (n x m), takes ~6 32-bit operations a predecessor
+    (two loads' adds, two compares, two selects) plus ~8 for the scan and
+    the writes."""
+    from rust_mdbg_tpu_torch.ops import kernels, poa_device
+
+    got = kernels.poa_dp(*args)
+    want = poa_device.poa_dp_plain(*args)
+    mism = _dp_mismatches(torch, got, want)
+    ms = cuda_time_ms(lambda: kernels.poa_dp(*args), 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poa_device.poa_dp_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    node_off, wts, topo, pred_off, pred_idx, term, q_off, queries = \
+        (a.cpu() for a in args)
+    G = node_off.numel() - 1
+    n = (node_off[1:] - node_off[:-1]).long()
+    m = (q_off[1:] - q_off[:-1]).long()
+    deg = (pred_off[1:] - pred_off[:-1]).long().clamp(min=1)
+    gid = torch.repeat_interleave(torch.arange(G), n)
+    ops = int(((6 * deg + 8) * m[gid]).sum())
+    nbytes = (8 * wts.numel() + 4 * topo.numel() + 4 * pred_off.numel()
+              + 4 * pred_idx.numel() + term.numel() + 8 * queries.numel()
+              + 8 * (G + 1) + 12 * G + 12 * int((n + m + 1).sum()))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return dict(shape=dict(G=G, cells=int((n * m).sum()),
+                           max_n=int(n.max()), max_m=int(m.max())),
+                mismatches=mism, max_abs_err=float(
+                    (got[0] - want[0]).abs().max()) if G else 0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+                bound_share=max(t_bytes, t_ops) / ms)
+
+
+def _noisy_reads(np, path: str, seed: int, n_reads: int, genome_len: int,
+                 read_len: int, n_err: int) -> str:
+    """tests/test_ec_procs.py's generator: reads at random starts of a
+    random genome, n_err random substitutions each."""
+    rng = np.random.default_rng(seed)
+    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, genome_len))
+    with open(path, "w") as f:
+        for i in range(n_reads):
+            start = int(rng.integers(0, genome_len - read_len))
+            read = list(genome[start : start + read_len])
+            for _ in range(n_err):
+                p = int(rng.integers(0, len(read)))
+                read[p] = "ACGT"[int(rng.integers(0, 4))]
+            f.write(f">r{i}\n{''.join(read)}\n")
+    return path
+
+
+def _ec_outputs(prefix: str) -> dict:
+    """Bytes of an EC run's .ec_data, .postcor.ec_data, .poa.ec_data, .gfa
+    and .sequences shards (those that exist)."""
+    d, base = os.path.split(prefix)
+    out = {}
+    for f in sorted(os.listdir(d)):
+        ext = f[len(base):]
+        if f.startswith(base + ".") and ext in (
+                ".ec_data", ".postcor.ec_data", ".poa.ec_data", ".gfa") \
+                or f.startswith(base + ".") and f.endswith(".sequences"):
+            out[ext] = open(os.path.join(d, f), "rb").read()
+    return out
+
+
+def ec_parity(tmp: str, Params, np) -> dict:
+    """EC legs cuda = cpu in .ec_data, .postcor.ec_data, .poa.ec_data,
+    .gfa and .sequences bytes, on 80 reads of 5 kb over a 20 kb genome
+    (20x, 0.2 % substitutions; ec-scale's k, l, d): the sequential driver
+    with triage (the scorer on the card), the lockstep driver (--ec-chunk
+    8, the POA DP on the card), --ec-procs 2 (forked workers: the numpy
+    scorer and the host DP after the parent's extraction on the card) and
+    --restart-from-postcor through the CLI.  Launch counts are set to 0
+    just before each cuda run and read just after."""
+    from rust_mdbg_tpu_torch import cli
+    from rust_mdbg_tpu_torch.core.pipeline import assemble
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    reads = _noisy_reads(np, os.path.join(tmp, "ec_parity.fa"), 9, 80,
+                         20_000, 5_000, 10)
+    legs = {"sequential": {}, "lockstep": dict(ec_device_poa=True,
+                                               ec_chunk=8),
+            "procs2": dict(ec_procs=2)}
+    names = ("nthash_select", "semiglobal_scores", "poa_dp")
+    out = {}
+    for leg, kw in legs.items():
+        p = Params(**EC_KW, **kw)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            prefix = os.path.join(tmp, f"ec_{leg}_{dev}")
+            run_on = DEVICE if dev == "cuda" else dev
+            for n in names:
+                getattr(kernels, n).launches = 0
+            t0 = time.perf_counter()
+            st = assemble(reads, p, prefix, device=run_on)
+            res[dev] = dict(seconds=time.perf_counter() - t0,
+                            phases=st["phases"], nodes=st["nb_nodes"],
+                            launches={n: getattr(kernels, n).launches
+                                      for n in names})
+        a, b = (_ec_outputs(os.path.join(tmp, f"ec_{leg}_{d}"))
+                for d in ("cuda", "cpu"))
+        if a != b or len(a) < 5:
+            raise SystemExit(f"EC parity ({leg}): outputs differ between "
+                             f"cuda and cpu: {sorted(a)} / {sorted(b)}")
+        want = {"sequential": "semiglobal_scores", "lockstep": "poa_dp",
+                "procs2": "nthash_select"}[leg]
+        if any(res["cpu"]["launches"].values()) or DEVICE == "cuda" and (
+                res["cuda"]["launches"][want] <= 0
+                or res["cuda"]["launches"]["nthash_select"] <= 0):
+            raise SystemExit(f"EC parity ({leg}): launches {res}")
+        if leg == "procs2" and res["cuda"]["launches"]["semiglobal_scores"]:
+            raise SystemExit("EC parity (procs2): a forked worker launched "
+                             "the scorer")
+        res["bytes"] = {k: len(v) for k, v in a.items()}
+        out[leg] = res
+    # --restart-from-postcor through the CLI, from the sequential leg's
+    # corrected reads (host only; the default device is never touched)
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        src = os.path.join(tmp, f"ec_sequential_{dev}")
+        dst = os.path.join(tmp, f"ec_restart_{dev}")
+        shutil.copy(src + ".postcor.ec_data", dst + ".postcor.ec_data")
+        if cli.main([reads, "-k", "8", "-l", "10", "-d", "0.02", "-n", "2",
+                     "--restart-from-postcor", "--prefix", dst]) != 0:
+            raise SystemExit("EC parity (restart): CLI failed")
+    a, b = (_ec_outputs(os.path.join(tmp, f"ec_restart_{d}"))
+            for d in ("cuda", "cpu"))
+    seq = _ec_outputs(os.path.join(tmp, "ec_sequential_cuda"))
+    if a != b or a[".gfa"] != seq[".gfa"] or not a[".gfa"]:
+        raise SystemExit("EC parity (restart): outputs differ")
+    out["restart"] = dict(seconds=time.perf_counter() - t0,
+                          bytes={k: len(v) for k, v in a.items()})
+    return out
+
+
+def ec_main(tmp: str, device_poa: bool, genome_mbp: float) -> dict:
+    """ec-scale through the CLI on the card (no --device: the default),
+    10 kb reads at 30x with 0.3 % substitutions, ec-scale's k=8 l=10
+    d=0.02: the lockstep driver (--device-poa, --ec-chunk 64) or the
+    sequential driver with triage.  Launch counts are set to 0 just before
+    and read just after; every EC kernel's launch is logged
+    (EcKernelLog)."""
+    from rust_mdbg_tpu_torch import cli
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    wd = os.path.join(tmp, "ec_main_" + ("lockstep" if device_poa
+                                         else "sequential"))
+    out_json = wd + ".json"
+    argv = ["ec-scale", "--genome-mbp", str(genome_mbp), "--coverage", "30",
+            "--read-len", "10000", "--error-rate", "0.003", "--ec-chunk",
+            "64", "--workdir", wd, "--out", out_json]
+    if device_poa:
+        argv.append("--device-poa")
+    if DEVICE != "cuda":
+        argv += ["--device", DEVICE]
+    names = ("nthash_select", "semiglobal_scores", "poa_dp")
+    for n in names:
+        getattr(kernels, n).launches = 0
+    t0 = time.perf_counter()
+    with EcKernelLog(kernels) as log:
+        if cli.main(argv) != 0:
+            raise SystemExit(f"EC main ({argv}): CLI failed")
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(kernels, n).launches for n in names}
+    rep = json.loads(open(out_json).read())
+    fa = os.path.join(wd, f"ec_{genome_mbp:g}mbp.fa")
+    with open(fa) as f:
+        n_reads = sum(line.startswith(">") for line in f)
+    ec_s = rep["phases"].get("error-correct", 0.0)
+    need = "poa_dp" if device_poa else "semiglobal_scores"
+    if DEVICE == "cuda" and (launches[need] <= 0
+                             or launches["nthash_select"] <= 0):
+        raise SystemExit(f"EC main: launches {launches}")
+    if rep["ec_after_identity"] <= rep["ec_before_identity"] or \
+            not rep["nb_nodes"]:
+        raise SystemExit(f"EC main: no correction {rep}")
+    res = dict(report=rep, reads=n_reads, cli_wall_s=wall,
+               error_correct_s=ec_s,
+               reingest_s=rep["phases"].get("reingest", 0.0),
+               reads_per_s=n_reads / ec_s if ec_s else None,
+               launches=launches, shapes=log.summary(),
+               stage_seconds=log.seconds)
+    res["_widest"] = log.widest
+    return res
+
+
 def _short(kernel: str) -> str:
     for junk in ("void ", "at::native::", "(anonymous namespace)::",
                  "at::cuda::detail::"):
@@ -1653,11 +2165,14 @@ def main() -> int:
     hash_bound = Params(k=21, l=14, density=0.003).hash_bound
     rows = [check_nthash_select(torch, np, hash_bound),
             check_syncmer_select(torch, np)]
-    for r in rows:
+    t0 = time.perf_counter()
+    ec_checks = [check_semiglobal_scores(torch, np), check_poa_dp(torch, np)]
+    for r in rows + ec_checks:
         print(f"kernel check: {json.dumps(r)}", flush=True)
         if r["mismatches"]:
             raise SystemExit(f"{r['name']}: {r['mismatches']} mismatches "
                              "against the plain version")
+    print(f"EC kernel checks: {time.perf_counter() - t0:.3f} s", flush=True)
 
     tmp = os.path.join(HERE, ".smoke_tmp")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -1723,6 +2238,28 @@ def main() -> int:
         if kernels.syncmer_select.launches:
             raise SystemExit("tools: syncmer_select launched off its path")
         print(f"tools: {json.dumps(tools)}", flush=True)
+
+        t0 = time.perf_counter()
+        ecp = ec_parity(tmp, Params, np)
+        ecp["seconds"] = time.perf_counter() - t0
+        print(f"EC parity: {json.dumps(ecp)}", flush=True)
+        ec_legs = {}
+        for leg, device_poa, mbp in (
+                ("sequential", False, EC_SEQ_GENOME_MBP),
+                ("lockstep", True, EC_GENOME_MBP)):
+            ec_legs[leg] = ec_main(tmp, device_poa, mbp)
+            widest = ec_legs[leg].pop("_widest")
+            print(f"EC main ({leg}): {json.dumps(ec_legs[leg])}",
+                  flush=True)
+            if leg == "sequential":
+                sg_t = time_semiglobal_scores(torch, np, widest["scores"])
+            else:
+                dp_t = time_poa_dp(torch, np, widest["dp"])
+        for r in (sg_t, dp_t):
+            print(f"EC kernel timing: {json.dumps(r)}", flush=True)
+            if r["mismatches"]:
+                raise SystemExit(f"EC kernel timing: {r['mismatches']} "
+                                 "mismatches at the leg's own shapes")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1732,10 +2269,34 @@ def main() -> int:
            for leg, w in whole.items()},
         **{f"scheme_{leg}": w["nthash_select_launches"]
            for leg, w in scheme.items()},
-        multik=tools["multik"]["nthash_select_launches"])
+        multik=tools["multik"]["nthash_select_launches"],
+        **{f"ec_main_{leg}": w["launches"]["nthash_select"]
+           for leg, w in ec_legs.items()})
     rows[1]["launches_by_leg"] = {
         f"scheme_{leg}": w["syncmer_select_launches"]
         for leg, w in scheme.items()}
+    for check, timing, name, leg, src, replaces in (
+            (ec_checks[0], sg_t, "semiglobal_scores", "sequential",
+             "semiglobal_scores.cu",
+             "rust_mdbg_tpu/ops/align.py:30 (_make_scores_fn, XLA "
+             "lax.scan; no pallas_call)"),
+            (ec_checks[1], dp_t, "poa_dp", "lockstep", "poa_dp.cu",
+             "rust_mdbg_tpu/ops/poa_device.py:79 (_dp_single, vmapped by "
+             "_dp_batched :195, XLA; no pallas_call)")):
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"rust_mdbg_tpu_torch/csrc/{src}", replaces=replaces,
+            launches=0, max_abs_err=timing["max_abs_err"],
+            mismatches=check["mismatches"] + timing["mismatches"],
+            ms=timing["ms"], plain_ms=timing["plain_ms"],
+            bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+            bound_share=timing["bound_share"],
+            bytes_bound_ms=timing["bytes_bound_ms"],
+            ops_bound_ms=timing["ops_bound_ms"], library_ms=None,
+            shape=timing["shape"], cases=check["cases"],
+            launches_by_leg={
+                f"ec_parity_{leg}": ecp[leg]["cuda"]["launches"][name],
+                f"ec_main_{leg}": ec_legs[leg]["launches"][name]}))
     for r in rows:
         r["launches"] = sum(r["launches_by_leg"].values())
         if r["launches"] <= 0:

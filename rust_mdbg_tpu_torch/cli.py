@@ -4,7 +4,8 @@
         --minabund N --prefix P [--skiphpc] [--bf [--bf-bits N]]
         [--syncmers [-s S]] [--lmer-counts F] [--uhs F] [--lcp F]
         [--reference] [--read-stats F] [--engine device|host]
-        [--device cuda|cpu]
+        [--error-correct [--ec-device-poa] [--ec-procs N] [--ec-chunk N]]
+        [--restart-from-postcor] [--device cuda|cpu]
     python -m rust_mdbg_tpu_torch TOOL ...
 
 The parser takes every flag of `python -m rust_mdbg_tpu` and maps it onto
@@ -14,17 +15,19 @@ the same Params: -n, -t, --distance, --correction-threshold, --threads,
 there.  The run goes through core/pipeline.assemble, which routes as the
 JAX package does: density and syncmer runs to the chunked driver
 (--minabund up to 16) or the whole-run device path (above it), everything
-else to the streaming engine.
+else, error correction included, to the streaming engine.
+--restart-from-postcor rebuilds the graph from prefix.postcor.ec_data
+(models/correct.assemble_from_postcor, host only).
 
 TOOL is one of the JAX package's subcommands (tools/): to-basespace,
 gfa-asm, magic-simplify, simplify-meta, multik (which assembles on the card
 unless given --device cpu), gfa2fasta, break-loops, gfa-complete,
-hpc-compress, gfa-strip, extreme-simplify, synth-reads.
+hpc-compress, gfa-strip, extreme-simplify, synth-reads, ec-scale (on the
+card unless given --device cpu).
 
-Error correction (--error-correct without --reference),
---restart-from-postcor, --mesh, --multihost and the subcommands ec-scale
-and quality-n50 select paths this port does not run yet: they fail with a
-"not ported yet" error naming ROADMAP.md instead of running something else.
+--mesh, --multihost and the subcommand quality-n50 select paths this port
+does not run yet: they fail with a "not ported yet" error naming
+ROADMAP.md instead of running something else.
 """
 
 from __future__ import annotations
@@ -37,21 +40,17 @@ import time
 from .params import Params, autodetect_k_l_d, default_prefix
 
 #: flags of the JAX package's CLI whose paths are later slices
-_NOT_PORTED = {
-    "error_correct": "--error-correct",
-    "restart_from_postcor": "--restart-from-postcor",
-    "mesh": "--mesh", "multihost": "--multihost",
-}
+_NOT_PORTED = {"mesh": "--mesh", "multihost": "--multihost"}
 
 #: subcommands of the JAX package's CLI, run by tools.dispatch
 _TOOLS = (
     "to-basespace", "gfa-asm", "magic-simplify", "multik", "gfa2fasta",
     "break-loops", "simplify-meta", "gfa-complete", "hpc-compress",
-    "gfa-strip", "extreme-simplify", "synth-reads",
+    "gfa-strip", "extreme-simplify", "synth-reads", "ec-scale",
 )
 
 #: subcommands of the JAX package's CLI not ported yet
-_TOOLS_NOT_PORTED = ("ec-scale", "quality-n50")
+_TOOLS_NOT_PORTED = ("quality-n50",)
 
 
 def _engine(name: str) -> str:
@@ -66,8 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Minimizer-space de Bruijn graph (mdBG) assembler, "
                     "PyTorch/CUDA port.",
         epilog="Subcommands: " + ", ".join(_TOOLS) + ".  Not ported yet: "
-               + ", ".join(_TOOLS_NOT_PORTED) + ", --error-correct (without "
-               "--reference), --restart-from-postcor, --mesh, --multihost.")
+               + ", ".join(_TOOLS_NOT_PORTED) + ", --mesh, --multihost.")
     p.add_argument("reads", help="input FASTA/FASTQ (.gz/.lz4 ok)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("-p", "--prefix", default=None)
@@ -116,6 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ec-device-poa", action="store_true")
     p.add_argument("--ec-procs", type=int, default=0)
     p.add_argument("--ec-chunk", type=int, default=32)
+    p.add_argument("--error-correct", action="store_true")
+    p.add_argument("--restart-from-postcor", action="store_true")
     for dest in _NOT_PORTED:
         flag = "--" + dest.replace("_", "-")
         if dest == "mesh":
@@ -127,9 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def params_from_args(args) -> tuple[Params, str]:
     for dest, label in _NOT_PORTED.items():
-        # --reference turns error correction off (the JAX CLI's rule)
-        if getattr(args, dest) and not (dest == "error_correct"
-                                        and args.reference):
+        if getattr(args, dest):
             raise SystemExit(
                 f"error: {label} is not ported yet (see ROADMAP.md)")
     k, l, density = 10, 12, 0.10
@@ -207,8 +205,13 @@ def main(argv=None):
     from .utils.timing import max_rss_bytes
 
     t0 = time.time()
-    stats = assemble(args.reads, params, prefix,
-                     read_stats_path=args.read_stats, device=args.device)
+    if args.restart_from_postcor:
+        from .models.correct import assemble_from_postcor
+
+        stats = assemble_from_postcor(params, prefix)
+    else:
+        stats = assemble(args.reads, params, prefix,
+                         read_stats_path=args.read_stats, device=args.device)
     print(f"Number of reads: {stats.get('nb_reads', 0)}")
     if args.read_stats:
         print("Read stats written, exiting.")
@@ -218,7 +221,8 @@ def main(argv=None):
     if params.presimp > 0.0:
         print(f"Pre-simp = {params.presimp}: "
               f"{stats.get('presimp_removed', 0)} edges removed.")
-    print(f"PHASES {stats['phases']}")
+    if stats.get("phases"):
+        print(f"PHASES {stats['phases']}")
     if stats.get("h2d_bytes"):
         print(f"H2D bytes: {stats['h2d_bytes']}")
     print(f"Total execution time: {time.time() - t0:.2f}s")

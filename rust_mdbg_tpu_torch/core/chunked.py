@@ -70,13 +70,6 @@ from .nodetable import NodeTable
 MAX_CHUNK_SLOTS = 16
 
 
-class NotPortedError(RuntimeError):
-    """A path of the JAX package that the port does not run yet."""
-
-    def __init__(self, what: str):
-        super().__init__(f"{what} is not ported yet (see ROADMAP.md)")
-
-
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
     another; with no GPU and no explicit device this raises."""
@@ -100,22 +93,14 @@ def chunked_eligible(params: Params) -> bool:
     return params.min_kmer_abundance <= MAX_CHUNK_SLOTS or params.reference
 
 
-def check_ported(params: Params):
-    """Raise NotPortedError for Params that select a path the port does not
-    run yet."""
-    if params.error_correct:
-        raise NotPortedError("error correction")
-
-
 def check_device_driver(params: Params):
     """The device drivers (chunked and whole-run) count density and syncmer
     minimizers of reads; everything else is the streaming engine's."""
-    check_ported(params)
-    if params.uhs or params.lcp or params.has_lmer_counts \
-            or params.reference:
+    if params.error_correct or params.uhs or params.lcp \
+            or params.has_lmer_counts or params.reference:
         raise ValueError(
-            "--uhs, --lcp, --lmer-counts and --reference run through the "
-            "streaming engine (core/pipeline.assemble)")
+            "error correction, --uhs, --lcp, --lmer-counts and --reference "
+            "run through the streaming engine (core/pipeline.assemble)")
 
 
 def plan_chunks(reads_path: str, params: Params, chunk_reads: int = 0) -> dict:

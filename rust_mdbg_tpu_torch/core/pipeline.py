@@ -6,11 +6,16 @@ device drivers: the chunked driver (core/chunked, bounded memory at any
 input size) whenever `chunked_eligible`, and `assemble_device_table` for
 --minabund beyond the chunk-slot ceiling, where the crossing occurrence is
 selected on the device by one reduction over every window of the run.
-Everything else (--lmer-counts, --uhs, --lcp, --reference, --read-stats,
---engine host) is the streaming engine: batches of reads through an
-extraction engine (ops/extract.DeviceExtractor on the device, or the numpy
-host engine of core/extract), the native node table, .sequences records at
-the abundance-crossing occurrence, the abundance filter, the GFA.
+Everything else (--error-correct, --lmer-counts, --uhs, --lcp, --reference,
+--read-stats, --engine host) is the streaming engine: batches of reads
+through an extraction engine (ops/extract.DeviceExtractor on the device,
+or the numpy host engine of core/extract), the native node table,
+.sequences records at the abundance-crossing occurrence, the abundance
+filter, the GFA.  Under --error-correct the first pass writes the
+per-read records (.ec_data) instead of .sequences, models/correct corrects
+them (the triage scorer or the lockstep POA DP on the device), and the
+node table is rebuilt from the corrected reads (`error-correct` and
+`reingest` phases, main.rs:846-914).
 
 The JAX `assemble` drops to its host engine when the device engine cannot
 be made, and to its streaming half when a device driver raises (a read
@@ -37,10 +42,10 @@ from ..io import fastx
 from ..io.ec_data import EcWriter
 from ..io.sequences import SequencesWriter, remove_stale
 from ..params import Params, staging_width
-from ..utils.seq import revcomp
+from ..utils.seq import normalize_vec, revcomp
 from ..utils.timing import PhaseTimer
 from .chunked import (assemble_device_chunked, check_device_driver,
-                      check_ported, chunked_eligible, resolve_device)
+                      chunked_eligible, resolve_device)
 from .device_out import (PhasedEmitter, emit_device_outputs,
                          minimizer_recompute_ok)
 from .extract import extract_windows_host
@@ -98,7 +103,6 @@ def assemble(reads_path: str, params: Params, prefix: str,
     k-min-mer abundances of that file's reads to `<file>.read_stats` and
     returns WITHOUT writing a GFA."""
     dev = resolve_device(device)
-    check_ported(params)
     if params.engine not in ("device", "host"):
         raise ValueError(f"engine {params.engine!r}: device or host")
     timer = PhaseTimer()
@@ -123,14 +127,15 @@ def assemble_streaming(reads_path: str, params: Params, prefix: str,
     its filter's fill (`filter_fill`: set Bloom bits, or the exact set's
     size)."""
     # --- parameter-dependent preparation ---------------------------------
-    minimizer_to_int = None
-    if params.has_lmer_counts:
+    minimizer_to_int = int_to_minimizer = None
+    if params.has_lmer_counts or params.error_correct:
         from ..ops.minimizers import minimizers_preparation
 
         lmer_counts = {}
-        if getattr(params, "_lmer_counts_path", None):
+        if params.has_lmer_counts and getattr(params, "_lmer_counts_path",
+                                              None):
             lmer_counts = load_lmer_counts(params._lmer_counts_path)
-        minimizer_to_int, _int_to_minimizer, _ = minimizers_preparation(
+        minimizer_to_int, int_to_minimizer, _ = minimizers_preparation(
             params, lmer_counts)
 
     uhs_filter = lcp_filter = None
@@ -153,7 +158,8 @@ def assemble_streaming(reads_path: str, params: Params, prefix: str,
     )
 
     with timer.phase("compile"):
-        if dev.type == "cuda" and params.engine != "host":
+        if dev.type == "cuda" and (params.engine != "host"
+                                   or params.error_correct):
             from ..ops.kernels import build_all
 
             build_all()
@@ -161,7 +167,13 @@ def assemble_streaming(reads_path: str, params: Params, prefix: str,
                                   lcp_filter)
 
     seq_writer = None
-    ec_writer = EcWriter(prefix) if params.reference else None
+    ec_writer = (EcWriter(prefix) if params.reference or params.error_correct
+                 else None)
+    # error correction: .sequences come from the corrected reads
+    # (reingest), and every read's record is kept for the correction pass
+    write_seqs_first_pass = not params.error_correct
+    buckets: dict[tuple, list[str]] = {}
+    reads_by_id: dict = {}
 
     max_len = params.max_read_len
     if max_len <= 0:
@@ -202,7 +214,7 @@ def assemble_streaming(reads_path: str, params: Params, prefix: str,
                 vecs = get_vecs(hit)
                 for vi, j in enumerate(hit):
                     table.vectors[int(index[j])] = vecs[vi].copy()
-                if not params.no_basespace:
+                if write_seqs_first_pass and not params.no_basespace:
                     if seq_writer is None:
                         seq_writer = SequencesWriter(prefix, 0, params.k,
                                                      params.l)
@@ -225,19 +237,42 @@ def assemble_streaming(reads_path: str, params: Params, prefix: str,
                     pos, hashes = m
                     if len(hashes) < params.n:
                         continue
+                    rid = batch.ids[row]
                     seq_str = batch.raw[row].decode()
-                    seq_str = seq_str.replace("\n", "").replace("\r", "")
-                    ec_writer.record(batch.ids[row], seq_str, hashes, [], pos)
+                    if params.reference:
+                        seq_str = seq_str.replace("\n", "").replace("\r",
+                                                                     "")
+                    ec_writer.record(rid, seq_str, hashes, [], pos)
+                    if params.error_correct:
+                        t = [int(x) for x in hashes]
+                        reads_by_id[rid] = dict(
+                            id=rid, seq=seq_str, transformed=t,
+                            pos=[int(x) for x in pos])
+                        for i in range(len(t) - params.n + 1):
+                            buckets.setdefault(
+                                normalize_vec(t[i : i + params.n]), []
+                            ).append(rid)
 
     if ec_writer is not None:
         ec_writer.flush()
-    if seq_writer is not None:
-        seq_writer.close()
     stats["nb_reads"] = nb_reads
     stats["nb_windows"] = nb_windows
     if device_extract is not None:
         stats.update(device_extract.stats)
         stats["filter_fill"] = device_extract.filter_fill()
+
+    # --- error correction pass ------------------------------------------
+    if params.error_correct:
+        from ..models.correct import reingest_postcor, run_error_correction
+
+        with timer.phase("error-correct"):
+            run_error_correction(prefix, params, int_to_minimizer, buckets,
+                                 reads_by_id, device=dev)
+        with timer.phase("reingest"):
+            table.clear()
+            seq_writer = reingest_postcor(prefix, params, table, seq_writer)
+    if seq_writer is not None:
+        seq_writer.close()
 
     # --- abundance filter -----------------------------------------------
     stats["nb_nodes_prefilter"] = len(table)

@@ -1019,43 +1019,40 @@ def _build_lmer_table(m2i: dict, l: int):
     skipped; the remaining keys pack injectively (base-8 over codes 0..4)."""
     from ..utils.seq import BASE_CODE, CODE_BASE
 
-    keys, vals = [], []
-    for s, v in m2i.items():
-        if len(s) != l:
-            continue
-        codes = np.minimum(BASE_CODE[np.frombuffer(s.encode(), np.uint8)], 4)
-        if CODE_BASE[codes].tobytes().decode() != s:
-            continue  # host decode_bases can never produce this string
-        pk = np.uint64(0)
-        for j in range(l):
-            pk |= np.uint64(codes[j]) << np.uint64(3 * (l - 1 - j))
-        keys.append(pk)
-        vals.append(np.uint64(v))
-    if not keys:
+    items = [(s, v) for s, v in m2i.items() if len(s) == l and s.isascii()]
+    raw = np.frombuffer("".join(s for s, _ in items).encode(),
+                        dtype=np.uint8).reshape(len(items), l)
+    codes = np.minimum(BASE_CODE[raw], 4)
+    # host decode_bases can never produce a key that does not decode back
+    ok = (CODE_BASE[codes] == raw).all(axis=1)
+    shifts = np.arange(3 * (l - 1), -1, -3, dtype=np.uint64)
+    keys = np.bitwise_or.reduce(codes[ok].astype(np.uint64) << shifts,
+                                axis=1)
+    vals = np.fromiter((v for _, v in items), dtype=np.uint64,
+                       count=len(items))[ok]
+    if not keys.size:
         # all-ones pad: no packed l-mer (< 2^63 at l <= 21) equals it, so
         # lookups on a degenerate table never match (and never index empty)
         return (np.array([_U64_ONES], dtype=np.uint64),
                 np.zeros(1, dtype=np.uint64))
-    k = np.asarray(keys, dtype=np.uint64)
-    v = np.asarray(vals, dtype=np.uint64)
-    order = np.argsort(k)
-    return k[order], v[order]
+    order = np.argsort(keys)
+    return keys[order], vals[order]
 
 
 def make_device_extractor(params, device, minimizer_to_int=None,
                           uhs_filter=None, lcp_filter=None):
     """The DeviceExtractor of a run on `device`, with the scheme tables its
     Params ask for taken from the host preparation's results."""
-    if params.error_correct:
-        # EC needs int_to_minimizer round-trips + per-read host records
-        raise NotImplementedError(
-            "device engine does not run the error-correction extraction")
     lmer_table = m2i = None
-    if params.has_lmer_counts:
+    if params.has_lmer_counts or params.error_correct:
+        # the remap of minimizers_preparation's table (read.rs:200-204):
+        # --lmer-counts' robust minimizers, and error correction, whose
+        # records carry the table's values (the JAX package's EC runs the
+        # host engine for it; here it is the device lookup)
         if minimizer_to_int is None or params.l > 21:
             raise NotImplementedError(
-                "device lmer-counts remap needs the prepared table and "
-                "l <= 21")
+                "device minimizer remap (--lmer-counts, error correction) "
+                "needs the prepared table and l <= 21")
         lmer_table = _build_lmer_table(minimizer_to_int, params.l)
         m2i = minimizer_to_int
     filter_mode = preload = bloom_bits = None

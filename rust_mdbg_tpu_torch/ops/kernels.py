@@ -24,7 +24,9 @@ import time
 import torch
 
 from . import u64
+from .align import semiglobal_scores_plain
 from .nthash import nthash_windows
+from .poa_device import ops_offsets, poa_dp_plain
 from .syncmers_device import syncmer_planes
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,7 +35,9 @@ BUILD_DIR = os.path.join(CSRC, "build")
 
 #: kernel name -> CUDA source file under csrc/
 SOURCES = {"nthash_select": "nthash_select.cu",
-           "syncmer_select": "syncmer_select.cu"}
+           "syncmer_select": "syncmer_select.cu",
+           "semiglobal_scores": "semiglobal_scores.cu",
+           "poa_dp": "poa_dp.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -87,8 +91,8 @@ def build_all(names=None) -> dict:
     return out
 
 
-#: C entry points of each library: name -> argument types (all return int,
-#: the launch's cudaGetLastError())
+#: C entry points of each library: name -> argument types (a launch returns
+#: int, its cudaGetLastError()), or (argument types, return type)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ENTRY_POINTS = {
@@ -100,6 +104,14 @@ _ENTRY_POINTS = {
         "syncmer_select_launch":
             [_P] * 4 + [_I] * 4 + [ctypes.c_ulonglong, _P],
     },
+    "semiglobal_scores": {
+        "semiglobal_scores_launch":
+            [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P],
+        "semiglobal_scores_scratch": ([_I, _I], ctypes.c_longlong),
+    },
+    "poa_dp": {
+        "poa_dp_launch": [_P] * 17 + [_I] * 5 + [_P],
+    },
 }
 
 
@@ -109,9 +121,11 @@ def _lib(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(_so_path(name))
-            for fn, argtypes in _ENTRY_POINTS[name].items():
+            for fn, sig in _ENTRY_POINTS[name].items():
+                argtypes, restype = (sig if isinstance(sig, tuple)
+                                     else (sig, ctypes.c_int))
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = restype
             _LIBS[name] = lib
         return lib
 
@@ -247,3 +261,129 @@ def syncmer_select(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
 
 
 syncmer_select.launches = 0
+
+
+# --- semiglobal_scores --------------------------------------------------------
+
+def semiglobal_scores(template: torch.Tensor, queries: torch.Tensor,
+                      qlens: torch.Tensor, *, gap: int = -1, match: int = 1,
+                      mismatch: int = -1) -> torch.Tensor:
+    """Semiglobal score of each query against the linear template (free
+    start in the template, the query consumed whole).
+
+    template int64 [T], queries int64 [B, Q] (u64 bits), qlens int32 [B]
+    (0 <= qlens <= Q).  Returns int32 [B].  CPU tensors take the plain
+    version (ops/align.semiglobal_scores_plain); CUDA tensors launch
+    csrc/semiglobal_scores.cu."""
+    if queries.device.type == "cpu":
+        return semiglobal_scores_plain(template, queries, qlens, gap=gap,
+                                       match=match, mismatch=mismatch)
+    _check_cuda(template, torch.int64, "template")
+    _check_cuda(queries, torch.int64, "queries")
+    _check_cuda(qlens, torch.int32, "qlens")
+    if (template.dim() != 1 or queries.dim() != 2
+            or qlens.shape != (queries.shape[0],)):
+        raise ValueError(f"bad shapes {tuple(template.shape)} / "
+                         f"{tuple(queries.shape)} / {tuple(qlens.shape)}")
+    if not template.device == queries.device == qlens.device:
+        raise ValueError("template, queries and qlens on different devices")
+    B, Q = queries.shape
+    if B:
+        lo, hi = torch.stack(torch.aminmax(qlens)).tolist()
+        if not 0 <= lo <= hi <= Q:
+            raise ValueError(f"qlens outside [0, {Q}]")
+    out = torch.empty(B, dtype=torch.int32, device=queries.device)
+    lib = _lib("semiglobal_scores")
+    need = lib.semiglobal_scores_scratch(B, Q)
+    scratch = (torch.empty(need, dtype=torch.int32, device=queries.device)
+               if need else None)
+    stream = torch.cuda.current_stream(queries.device).cuda_stream
+    err = lib.semiglobal_scores_launch(
+        template.data_ptr(), template.shape[0], queries.data_ptr(),
+        qlens.data_ptr(), B, Q, out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, gap, match,
+        mismatch, stream)
+    if err != 0:
+        raise RuntimeError(f"semiglobal_scores launch failed: CUDA error "
+                           f"{err}")
+    semiglobal_scores.launches += 1
+    return out
+
+
+semiglobal_scores.launches = 0
+
+
+# --- poa_dp -------------------------------------------------------------------
+
+def poa_dp(node_off: torch.Tensor, wts: torch.Tensor, topo: torch.Tensor,
+           pred_off: torch.Tensor, pred_idx: torch.Tensor,
+           term: torch.Tensor, q_off: torch.Tensor, queries: torch.Tensor,
+           *, ge: int = -1, match: int = 1, mismatch: int = -1):
+    """POA semiglobal DP and traceback of a batch of (graph, query) pairs
+    in ops/poa_device.export_batch's CSR layout: node_off int32 [G+1], wts
+    int64 [Ntot], topo int32 [Ntot], pred_off int32 [Ntot+1], pred_idx
+    int32 [Etot], term uint8 [Ntot], q_off int32 [G+1], queries int64
+    [Mtot].  Returns (best int32 [G], ystart int32 [G], nops int32 [G],
+    ops int32 [R, 3]): each pair's op rows (kind, pred, node) in traceback
+    order from ops_offsets(node_off, q_off)[g], -1 past nops.  CPU tensors
+    take the plain version (ops/poa_device.poa_dp_plain); CUDA tensors
+    launch csrc/poa_dp.cu, with the score, kind and pred matrices (9 B a
+    cell, (n + 1) x (m + 1) cells a pair) in scratch allocated here."""
+    if wts.device.type == "cpu":
+        return poa_dp_plain(node_off, wts, topo, pred_off, pred_idx, term,
+                            q_off, queries, ge=ge, match=match,
+                            mismatch=mismatch)
+    for t, dtype, name in ((node_off, torch.int32, "node_off"),
+                           (wts, torch.int64, "wts"),
+                           (topo, torch.int32, "topo"),
+                           (pred_off, torch.int32, "pred_off"),
+                           (pred_idx, torch.int32, "pred_idx"),
+                           (term, torch.uint8, "term"),
+                           (q_off, torch.int32, "q_off"),
+                           (queries, torch.int64, "queries")):
+        _check_cuda(t, dtype, name)
+        if t.device != wts.device or t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D on {wts.device}")
+    G = node_off.shape[0] - 1
+    dev = wts.device
+    n = node_off[1:] - node_off[:-1]
+    m = q_off[1:] - q_off[:-1]
+    cells = torch.cat([n.new_zeros(1, dtype=torch.int64),
+                       torch.cumsum((n.long() + 1) * (m.long() + 1), 0)])
+    ooff = ops_offsets(node_off, q_off)
+    total, rows, m_max, n_min, m_min = torch.stack([
+        cells[-1], ooff[-1], m.max().long(), n.min().long(),
+        m.min().long()]).tolist() if G > 0 else (0, 0, 0, 0, 0)
+    ntot = wts.shape[0]
+    if (n_min < 1 or m_min < 0 or topo.shape[0] != ntot
+            or term.shape[0] != ntot or pred_off.shape[0] != ntot + 1):
+        raise ValueError("inconsistent poa_dp batch: every pair needs a "
+                         "node, and topo, term, pred_off one entry a node")
+    best = torch.empty(G, dtype=torch.int32, device=dev)
+    ystart = torch.empty(G, dtype=torch.int32, device=dev)
+    nops = torch.empty(G, dtype=torch.int32, device=dev)
+    ops = torch.full((rows, 3), -1, dtype=torch.int32, device=dev)
+    if G == 0:
+        return best, ystart, nops, ops
+    score = torch.empty(total, dtype=torch.int32, device=dev)
+    kind = torch.empty(total, dtype=torch.int8, device=dev)
+    predm = torch.empty(total, dtype=torch.int32, device=dev)
+    # one thread a column up to 1,024; wider rows go in segments
+    threads = min(1024, max(64, (m_max + 1 + 31) // 32 * 32))
+    lib = _lib("poa_dp")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.poa_dp_launch(
+        node_off.data_ptr(), wts.data_ptr(), topo.data_ptr(),
+        pred_off.data_ptr(), pred_idx.data_ptr(), term.data_ptr(),
+        q_off.data_ptr(), queries.data_ptr(), cells.data_ptr(),
+        ooff.data_ptr(), score.data_ptr(), kind.data_ptr(),
+        predm.data_ptr(), best.data_ptr(), ystart.data_ptr(),
+        nops.data_ptr(), ops.data_ptr(), G, threads, ge, match, mismatch,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"poa_dp launch failed: CUDA error {err}")
+    poa_dp.launches += 1
+    return best, ystart, nops, ops
+
+
+poa_dp.launches = 0

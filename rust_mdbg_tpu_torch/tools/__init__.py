@@ -1,8 +1,8 @@
 """Pipeline tooling subcommands (the reference's second binary + utils/ scripts).
 
 Dispatch table for `python -m rust_mdbg_tpu_torch <tool> ...`.  The JAX
-package's `ec-scale` and `quality-n50` are not ported yet: the CLI refuses
-them before it gets here.
+package's `quality-n50` is not ported yet: the CLI refuses it before it
+gets here.
 """
 
 from __future__ import annotations
@@ -47,6 +47,10 @@ def dispatch(name: str, argv: list[str]) -> int:
         return main_strip(argv)
     if name == "synth-reads":
         from ..experiments.synth import main
+
+        return main(argv)
+    if name == "ec-scale":
+        from ..experiments.ec_scale import main
 
         return main(argv)
     if name == "extreme-simplify":

@@ -18,12 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from rust_mdbg_tpu.cli import main as jax_cli_main
 from rust_mdbg_tpu.core.chunked import assemble_device_chunked as jax_chunked
 from rust_mdbg_tpu.io.sequences import iter_sequences
 from rust_mdbg_tpu.params import Params as JaxParams
 from rust_mdbg_tpu_torch.cli import main as cli_main
-from rust_mdbg_tpu_torch.core.chunked import (NotPortedError,
-                                              assemble_device_chunked)
+from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
 from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
 from rust_mdbg_tpu_torch.params import Params
 
@@ -224,18 +224,46 @@ def test_cli_skiphpc(tmp_path, hpc_reads):
                                   ["--multihost"],
                                   ["--restart-from-postcor"]])
 def test_cli_rejects_unported_paths(tmp_path, reads, flag):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli_main([reads, "-k", "7", "--device", "cpu",
-                  "--prefix", str(tmp_path / "x")] + flag)
+    """--mesh and --multihost are still refused.  --error-correct runs and
+    writes the JAX CLI's bytes (.ec_data, .postcor.ec_data, .poa.ec_data,
+    .gfa, .sequences); --restart-from-postcor then rebuilds the same graph
+    from the corrected reads alone, as the JAX CLI does."""
+    if flag[0] in ("--mesh", "--multihost"):
+        with pytest.raises(SystemExit, match="not ported yet"):
+            cli_main([reads, "-k", "7", "--device", "cpu",
+                      "--prefix", str(tmp_path / "x")] + flag)
+        return
+    base = [reads, "-k", "7", "-l", "12", "-d", "0.01", "--error-correct"]
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jax_cli_main(base + ["--engine", "host", "--prefix", pj]) == 0
+    assert cli_main(base + ["--device", "cpu", "--prefix", pt]) == 0
+    exts = [".ec_data", ".postcor.ec_data", ".poa.ec_data", ".gfa"]
+    if flag == ["--restart-from-postcor"]:
+        for p in (pj, pt):
+            os.remove(p + ".gfa")
+        assert jax_cli_main(base + flag + ["--prefix", pj]) == 0
+        assert cli_main(base + flag + ["--prefix", pt]) == 0
+    for ext in exts:
+        assert open(pj + ext, "rb").read() == open(pt + ext, "rb").read()
+    assert _records(pj) == _records(pt) and _records(pt)
 
 
 @pytest.mark.parametrize("tool", ["to-basespace", "magic-simplify", "multik",
                                   "gfa-asm", "gfa2fasta", "ec-scale",
                                   "quality-n50"])
 def test_cli_rejects_tool_subcommands(tmp_path, reads, monkeypatch, tool):
-    """Of the JAX package's tool subcommands only ec-scale and quality-n50
-    are still refused; the others run on a tiny assembly of `reads`."""
-    if tool in ("ec-scale", "quality-n50"):
+    """Of the JAX package's tool subcommands only quality-n50 is still
+    refused; the others run on a tiny assembly of `reads` (ec-scale on a
+    genome of its own)."""
+    if tool == "ec-scale":
+        out = tmp_path / "ec.json"
+        assert cli_main([tool, "--genome-mbp", "0.005", "--coverage", "6",
+                         "--read-len", "1500", "--device", "cpu",
+                         "--workdir", str(tmp_path), "--out",
+                         str(out)]) == 0
+        assert '"ec_after_identity"' in out.read_text()
+        return
+    if tool == "quality-n50":
         with pytest.raises(SystemExit, match=f"{tool} is not ported yet"):
             cli_main([tool, "--gfa", "x.gfa"])
         return
@@ -254,12 +282,9 @@ def test_cli_rejects_tool_subcommands(tmp_path, reads, monkeypatch, tool):
 
 
 def test_unported_params_raise(tmp_path, reads):
-    with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        assemble_device_chunked(reads, Params(**{**KW, "error_correct": True}),
-                                str(tmp_path / "x"), device="cpu")
     # ported, but the streaming engine's: the device drivers refuse them
-    for kw in (dict(reference=True), dict(uhs=True), dict(lcp=True),
-               dict(has_lmer_counts=True)):
+    for kw in (dict(error_correct=True), dict(reference=True),
+               dict(uhs=True), dict(lcp=True), dict(has_lmer_counts=True)):
         with pytest.raises(ValueError, match="streaming engine"):
             assemble_device_chunked(reads, Params(**{**KW, **kw}),
                                     str(tmp_path / "x"), device="cpu")

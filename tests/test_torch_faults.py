@@ -171,10 +171,18 @@ def test_cli_parses_jax_command_lines(tmp_path, corpora, argv):
     assert not pt.error_correct
 
 
-def test_cli_error_correct_alone_is_refused(corpora):
-    with pytest.raises(SystemExit, match="--error-correct is not ported"):
-        cli.main([corpora["raw"], "-k", "7", "--error-correct",
-                  "--device", "cpu"])
+def test_cli_error_correct_alone_is_refused(tmp_path, corpora):
+    """The name is from the slices before error correction: --error-correct
+    without --reference now runs, and its outputs are the JAX CLI's bytes."""
+    argv = [corpora["raw"], "-k", "7", "-l", "12", "-d", "0.01",
+            "--error-correct"]
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jax_cli.main(argv + ["--engine", "host", "--prefix", pj]) == 0
+    assert cli.main(argv + ["--device", "cpu", "--prefix", pt]) == 0
+    for ext in (".ec_data", ".postcor.ec_data", ".poa.ec_data"):
+        assert open(pj + ext, "rb").read() == open(pt + ext, "rb").read()
+    assert gfa_bytes(pj) == gfa_bytes(pt)
+    assert records(pj) == records(pt)
 
 
 def test_cli_reference_with_error_correct_runs(tmp_path, corpora, capsys):

@@ -528,7 +528,7 @@ def test_tile_overflow_takes_the_host_row_and_is_counted(monkeypatch):
 
 def test_make_device_extractor_refusals():
     p = Params(k=4, l=10, density=0.05)
-    with pytest.raises(NotImplementedError, match="error-correction"):
+    with pytest.raises(NotImplementedError, match="error correction"):
         xt.make_device_extractor(p.replace(error_correct=True), "cpu")
     with pytest.raises(NotImplementedError, match="l <= 21"):
         xt.make_device_extractor(p.replace(has_lmer_counts=True, l=22),

@@ -17,7 +17,6 @@ import torch
 from rust_mdbg_tpu.core.pipeline import assemble as jax_assemble
 from rust_mdbg_tpu.params import Params as JaxParams
 from rust_mdbg_tpu_torch.cli import main as cli_main
-from rust_mdbg_tpu_torch.core.chunked import NotPortedError
 from rust_mdbg_tpu_torch.core.pipeline import assemble, load_lmer_counts
 from rust_mdbg_tpu_torch.params import Params
 
@@ -258,7 +257,7 @@ def test_cli_read_stats_debug_and_missing_files(tmp_path, corpus, capsys):
 
 def test_streaming_needs_a_device(tmp_path, corpus, monkeypatch):
     """Without --device and without a GPU every streaming flag raises
-    before anything is written; error correction is still a later slice."""
+    before anything is written, error correction too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for flag in ("uhs", "reference", "lmer_counts"):
         kw, paths, reads = FLAGS[flag]
@@ -268,7 +267,7 @@ def test_streaming_needs_a_device(tmp_path, corpus, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         assemble(corpus["raw"], Params(**KW), str(tmp_path / "x"),
                  read_stats_path=corpus["raw"])
-    assert not list(tmp_path.iterdir())
-    with pytest.raises(NotPortedError, match="error correction"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         assemble(corpus["raw"], Params(**KW, error_correct=True),
-                 str(tmp_path / "x"), device="cpu")
+                 str(tmp_path / "x"))
+    assert not list(tmp_path.iterdir())

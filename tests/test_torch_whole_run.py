@@ -14,8 +14,7 @@ from rust_mdbg_tpu.params import Params as JaxParams
 from rust_mdbg_tpu.utils.timing import PhaseTimer
 from rust_mdbg_tpu_torch.cli import main as cli_main
 from rust_mdbg_tpu_torch.core import pipeline
-from rust_mdbg_tpu_torch.core.chunked import (NotPortedError,
-                                              assemble_device_chunked)
+from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
 from rust_mdbg_tpu_torch.core.pipeline import assemble, assemble_device_table
 from rust_mdbg_tpu_torch.params import Params
 
@@ -217,18 +216,26 @@ def test_cli_runs_bf_and_minabund_17(tmp_path, corpora, flags, kind):
 @pytest.mark.parametrize("kw,what", [
     (dict(reference=True), "streaming engine"),
     (dict(uhs=True), "streaming engine"),
-    (dict(error_correct=True), "error correction")])
+    (dict(error_correct=True), "streaming engine")])
 def test_assemble_rejects_unported_paths(tmp_path, corpora, kw, what):
-    """Error correction is a later slice everywhere; the streaming engine's
-    schemes are refused by the whole-run driver when it is called directly."""
-    err = NotPortedError if "error_correct" in kw else ValueError
-    with pytest.raises(err, match=what):
+    """The streaming engine's paths, error correction among them, are
+    refused by the whole-run driver when it is called directly; `assemble`
+    routes error correction to the streaming engine, which writes the JAX
+    package's bytes."""
+    with pytest.raises(ValueError, match=what):
         assemble_device_table(corpora["raw"], Params(**{**KW, **kw}),
                               str(tmp_path / "x"), device="cpu")
     if "error_correct" in kw:
-        with pytest.raises(NotPortedError, match=what):
-            assemble(corpora["raw"], Params(**{**KW, **kw}),
-                     str(tmp_path / "x"), device="cpu")
+        pj, pt = str(tmp_path / "jax"), str(tmp_path / "port")
+        jax_assemble(corpora["raw"],
+                     JaxParams(**{**KW, **kw, "engine": "host"}), pj)
+        st = assemble(corpora["raw"], Params(**{**KW, **kw}), pt,
+                      device="cpu")
+        for ext in (".ec_data", ".postcor.ec_data", ".poa.ec_data"):
+            assert open(pj + ext, "rb").read() == open(pt + ext, "rb").read()
+        assert gfa_bytes(pj) == gfa_bytes(pt)
+        assert records(pj) == records(pt)
+        assert st["nb_nodes"] > 0 and "reingest" in st["phases"]
 
 
 def test_read_stats_is_not_ported(tmp_path, corpora):
