@@ -21,12 +21,13 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 from . import u64
 from .align import semiglobal_scores_plain
 from .nthash import nthash_windows
-from .poa_device import ops_offsets, poa_dp_plain
+from .poa_device import poa_dp_plain
 from .syncmers_device import syncmer_planes
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -106,11 +107,10 @@ _ENTRY_POINTS = {
     },
     "semiglobal_scores": {
         "semiglobal_scores_launch":
-            [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P],
-        "semiglobal_scores_scratch": ([_I, _I], ctypes.c_longlong),
+            [_P, _I, _P, _P, _I, _I, _P, _P] + [_I] * 5 + [_P],
     },
     "poa_dp": {
-        "poa_dp_launch": [_P] * 17 + [_I] * 5 + [_P],
+        "poa_dp_launch": [_P] * 16 + [_I] * 8 + [_P],
     },
 }
 
@@ -263,7 +263,149 @@ def syncmer_select(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
 syncmer_select.launches = 0
 
 
+# --- planning of the two EC kernels ------------------------------------------
+
+#: strip widths the EC kernels are built for: columns a lane holds
+STRIPS = (1, 2, 4, 6, 8, 9, 10, 11, 12, 16)
+#: shared memory a block may have on an H100 (227 KB)
+SMEM_PER_BLOCK = 232_448
+#: POA DP: rows of the shared-memory ring (the rest are read from global)
+POA_RING_ROWS = 16
+#: POA DP: bytes of one step's metadata, and of one warp's 32 in shared
+#: memory
+POA_STEP_META = 64
+POA_META_BYTES = 32 * POA_STEP_META
+#: POA DP: pairs a block at most; scorer: queries a block
+POA_WARPS_MAX = 4
+SCORES_WARPS = 4
+#: the POA DP packs pred + 1 above 2 bits of kind in an int32 word
+POA_MAX_NODES = 1 << 29
+
+
+def strip_for(width: int) -> int:
+    """The narrowest strip whose warp (32 lanes) covers `width` columns;
+    the widest strip when none does (the kernel then walks register tiles
+    of 32 x 16 columns)."""
+    for c in STRIPS:
+        if 32 * c >= width:
+            return c
+    return STRIPS[-1]
+
+
+def semiglobal_scores_plan(B: int, T: int, Q: int) -> dict:
+    """Launch plan of csrc/semiglobal_scores.cu: the strip (from the padded
+    width Q + 1), queries a block, blocks, and the int32 count of the tile
+    boundary scratch (2 x (T + 1) a query, only when Q + 1 needs more than
+    one register tile)."""
+    strip = strip_for(Q + 1)
+    warps = max(1, min(SCORES_WARPS, B))
+    tiles = -(-(Q + 1) // (32 * strip))
+    return dict(strip=strip, warps=warps, blocks=-(-B // warps),
+                tiles=tiles, scratch=2 * (T + 1) * B if tiles > 1 else 0)
+
+
+def poa_dp_plan(G: int, n_max: int, m_max: int, sms: int,
+                ring_rows: int | None = None) -> dict:
+    """Launch plan of csrc/poa_dp.cu for G pairs of at most n_max nodes
+    and m_max query symbols on a card of `sms` multiprocessors: the strip,
+    the words a matrix row (Wp, whole register tiles), pairs a block (one
+    until the pairs outnumber the multiprocessors), the shared-memory ring
+    (rows R: a power of two, at most `ring_rows`, that fits the block's
+    shared memory; 0 sends every predecessor read to global), and whether
+    the global score matrix is needed (some pair has n > R)."""
+    if not 0 < n_max < POA_MAX_NODES:
+        raise ValueError(f"poa_dp takes 1 <= n < 2^29 nodes a pair, got "
+                         f"{n_max}")
+    strip = strip_for(m_max + 1)
+    tile = 32 * strip
+    Wp = -(-(m_max + 1) // tile) * tile
+    warps = max(1, min(POA_WARPS_MAX, -(-G // max(1, sms))))
+    want = POA_RING_ROWS if ring_rows is None else ring_rows
+    fit = (SMEM_PER_BLOCK // warps - POA_META_BYTES) // (4 * Wp)
+    cap = min(want, fit)
+    R = 1 << (cap.bit_length() - 1) if cap >= 2 else 0
+    return dict(strip=strip, Wp=Wp, warps=warps, ring=R,
+                far=n_max > R, blocks=-(-G // warps),
+                smem=warps * (POA_META_BYTES + 4 * R * Wp))
+
+
+def poa_dp_routes(node_off, topo, pred_off, pred_idx, q_off,
+                  plan: dict) -> dict:
+    """Where csrc/poa_dp.cu reads each predecessor row under `plan`
+    (numpy or CPU tensors in export_batch's layout): counts of
+    "registers" (the previous step's row, distance 1 in topological
+    order, when one register tile covers the query), "ring" (distance
+    below plan["ring"]) and "global"; one count a predecessor and a
+    pair."""
+    noff, po = np.asarray(node_off), np.asarray(pred_off)
+    tp, pi, qo = np.asarray(topo), np.asarray(pred_idx), np.asarray(q_off)
+    tile = 32 * plan["strip"]
+    out = {"registers": 0, "ring": 0, "global": 0}
+    for g in range(len(noff) - 1):
+        a, b = int(noff[g]), int(noff[g + 1])
+        rank = np.empty(b - a, dtype=np.int64)
+        rank[tp[a:b]] = np.arange(b - a)
+        one = int(qo[g + 1] - qo[g]) + 1 <= tile
+        deg = np.diff(po[a:b + 1])
+        owner = np.repeat(np.arange(b - a), deg)
+        d = rank[owner] - rank[pi[po[a]:po[b]]]
+        reg = (d == 1) & one
+        ring = ~reg & (d < plan["ring"])
+        out["registers"] += int(reg.sum())
+        out["ring"] += int(ring.sum())
+        out["global"] += int((~reg & ~ring).sum())
+    return out
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 # --- semiglobal_scores --------------------------------------------------------
+
+def semiglobal_scores_launcher(template: torch.Tensor, queries: torch.Tensor,
+                               qlens: torch.Tensor, *, gap: int = -1,
+                               match: int = 1, mismatch: int = -1):
+    """Checks and plans one launch of csrc/semiglobal_scores.cu (CUDA
+    tensors), allocates its output and scratch, and returns (launch, out,
+    plan): launch() runs the kernel on them (no allocation, no host sync,
+    no count) and raises if the launch fails."""
+    _check_cuda(template, torch.int64, "template")
+    _check_cuda(queries, torch.int64, "queries")
+    _check_cuda(qlens, torch.int32, "qlens")
+    if (template.dim() != 1 or queries.dim() != 2
+            or qlens.shape != (queries.shape[0],)):
+        raise ValueError(f"bad shapes {tuple(template.shape)} / "
+                         f"{tuple(queries.shape)} / {tuple(qlens.shape)}")
+    if not template.device == queries.device == qlens.device:
+        raise ValueError("template, queries and qlens on different devices")
+    B, Q = queries.shape
+    T = template.shape[0]
+    if B:
+        lo, hi = torch.stack(torch.aminmax(qlens)).tolist()
+        if not 0 <= lo <= hi <= Q:
+            raise ValueError(f"qlens outside [0, {Q}]")
+    plan = semiglobal_scores_plan(B, T, Q)
+    out = torch.empty(B, dtype=torch.int32, device=queries.device)
+    scratch = (torch.empty(plan["scratch"], dtype=torch.int32,
+                           device=queries.device)
+               if plan["scratch"] else None)
+    lib = _lib("semiglobal_scores")
+    args = (template.data_ptr(), T, queries.data_ptr(), qlens.data_ptr(), B,
+            Q, out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            plan["strip"], plan["warps"], gap, match, mismatch,
+            _stream(queries.device))
+
+    def launch():
+        err = lib.semiglobal_scores_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"semiglobal_scores launch failed: CUDA "
+                               f"error {err}")
+
+    launch.keep = (scratch,)
+    return launch, out, plan
+
 
 def semiglobal_scores(template: torch.Tensor, queries: torch.Tensor,
                       qlens: torch.Tensor, *, gap: int = -1, match: int = 1,
@@ -278,34 +420,9 @@ def semiglobal_scores(template: torch.Tensor, queries: torch.Tensor,
     if queries.device.type == "cpu":
         return semiglobal_scores_plain(template, queries, qlens, gap=gap,
                                        match=match, mismatch=mismatch)
-    _check_cuda(template, torch.int64, "template")
-    _check_cuda(queries, torch.int64, "queries")
-    _check_cuda(qlens, torch.int32, "qlens")
-    if (template.dim() != 1 or queries.dim() != 2
-            or qlens.shape != (queries.shape[0],)):
-        raise ValueError(f"bad shapes {tuple(template.shape)} / "
-                         f"{tuple(queries.shape)} / {tuple(qlens.shape)}")
-    if not template.device == queries.device == qlens.device:
-        raise ValueError("template, queries and qlens on different devices")
-    B, Q = queries.shape
-    if B:
-        lo, hi = torch.stack(torch.aminmax(qlens)).tolist()
-        if not 0 <= lo <= hi <= Q:
-            raise ValueError(f"qlens outside [0, {Q}]")
-    out = torch.empty(B, dtype=torch.int32, device=queries.device)
-    lib = _lib("semiglobal_scores")
-    need = lib.semiglobal_scores_scratch(B, Q)
-    scratch = (torch.empty(need, dtype=torch.int32, device=queries.device)
-               if need else None)
-    stream = torch.cuda.current_stream(queries.device).cuda_stream
-    err = lib.semiglobal_scores_launch(
-        template.data_ptr(), template.shape[0], queries.data_ptr(),
-        qlens.data_ptr(), B, Q, out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, gap, match,
-        mismatch, stream)
-    if err != 0:
-        raise RuntimeError(f"semiglobal_scores launch failed: CUDA error "
-                           f"{err}")
+    launch, out, _ = semiglobal_scores_launcher(
+        template, queries, qlens, gap=gap, match=match, mismatch=mismatch)
+    launch()
     semiglobal_scores.launches += 1
     return out
 
@@ -315,24 +432,18 @@ semiglobal_scores.launches = 0
 
 # --- poa_dp -------------------------------------------------------------------
 
-def poa_dp(node_off: torch.Tensor, wts: torch.Tensor, topo: torch.Tensor,
-           pred_off: torch.Tensor, pred_idx: torch.Tensor,
-           term: torch.Tensor, q_off: torch.Tensor, queries: torch.Tensor,
-           *, ge: int = -1, match: int = 1, mismatch: int = -1):
-    """POA semiglobal DP and traceback of a batch of (graph, query) pairs
-    in ops/poa_device.export_batch's CSR layout: node_off int32 [G+1], wts
-    int64 [Ntot], topo int32 [Ntot], pred_off int32 [Ntot+1], pred_idx
-    int32 [Etot], term uint8 [Ntot], q_off int32 [G+1], queries int64
-    [Mtot].  Returns (best int32 [G], ystart int32 [G], nops int32 [G],
-    ops int32 [R, 3]): each pair's op rows (kind, pred, node) in traceback
-    order from ops_offsets(node_off, q_off)[g], -1 past nops.  CPU tensors
-    take the plain version (ops/poa_device.poa_dp_plain); CUDA tensors
-    launch csrc/poa_dp.cu, with the score, kind and pred matrices (9 B a
-    cell, (n + 1) x (m + 1) cells a pair) in scratch allocated here."""
-    if wts.device.type == "cpu":
-        return poa_dp_plain(node_off, wts, topo, pred_off, pred_idx, term,
-                            q_off, queries, ge=ge, match=match,
-                            mismatch=mismatch)
+def poa_dp_launcher(node_off: torch.Tensor, wts: torch.Tensor,
+                    topo: torch.Tensor, pred_off: torch.Tensor,
+                    pred_idx: torch.Tensor, term: torch.Tensor,
+                    q_off: torch.Tensor, queries: torch.Tensor, *,
+                    ge: int = -1, match: int = 1, mismatch: int = -1,
+                    ring_rows: int | None = None):
+    """Checks and plans one launch of csrc/poa_dp.cu (CUDA tensors in
+    export_batch's layout), allocates its outputs and scratch, and returns
+    (launch, (best, ystart, nops, ops), plan): launch() runs the kernel on
+    them (no allocation, no host sync, no count) and raises if the launch
+    fails.  `ring_rows` caps the shared-memory ring (0: every predecessor
+    row from global memory); the result does not depend on it."""
     for t, dtype, name in ((node_off, torch.int32, "node_off"),
                            (wts, torch.int64, "wts"),
                            (topo, torch.int32, "topo"),
@@ -346,44 +457,79 @@ def poa_dp(node_off: torch.Tensor, wts: torch.Tensor, topo: torch.Tensor,
             raise ValueError(f"{name} must be 1-D on {wts.device}")
     G = node_off.shape[0] - 1
     dev = wts.device
-    n = node_off[1:] - node_off[:-1]
-    m = q_off[1:] - q_off[:-1]
-    cells = torch.cat([n.new_zeros(1, dtype=torch.int64),
-                       torch.cumsum((n.long() + 1) * (m.long() + 1), 0)])
-    ooff = ops_offsets(node_off, q_off)
-    total, rows, m_max, n_min, m_min = torch.stack([
-        cells[-1], ooff[-1], m.max().long(), n.min().long(),
-        m.min().long()]).tolist() if G > 0 else (0, 0, 0, 0, 0)
-    ntot = wts.shape[0]
-    if (n_min < 1 or m_min < 0 or topo.shape[0] != ntot
-            or term.shape[0] != ntot or pred_off.shape[0] != ntot + 1):
-        raise ValueError("inconsistent poa_dp batch: every pair needs a "
-                         "node, and topo, term, pred_off one entry a node")
+    ntot, mtot = wts.shape[0], queries.shape[0]
+    if (topo.shape[0] != ntot or term.shape[0] != ntot
+            or pred_off.shape[0] != ntot + 1 or q_off.shape[0] != G + 1):
+        raise ValueError("inconsistent poa_dp batch: topo, term, pred_off "
+                         "one entry a node, q_off one a pair")
     best = torch.empty(G, dtype=torch.int32, device=dev)
     ystart = torch.empty(G, dtype=torch.int32, device=dev)
     nops = torch.empty(G, dtype=torch.int32, device=dev)
-    ops = torch.full((rows, 3), -1, dtype=torch.int32, device=dev)
-    if G == 0:
-        return best, ystart, nops, ops
-    score = torch.empty(total, dtype=torch.int32, device=dev)
-    kind = torch.empty(total, dtype=torch.int8, device=dev)
-    predm = torch.empty(total, dtype=torch.int32, device=dev)
-    # one thread a column up to 1,024; wider rows go in segments
-    threads = min(1024, max(64, (m_max + 1 + 31) // 32 * 32))
+    ops = torch.empty((ntot + mtot + G, 3), dtype=torch.int32, device=dev)
+    outs = (best, ystart, nops, ops)
+    if G <= 0:
+        return (lambda: None), outs, None
+    n = node_off[1:] - node_off[:-1]
+    m = q_off[1:] - q_off[:-1]
+    n_min, n_max, m_min, m_max, n_first, q_first, n_last, q_last = \
+        torch.stack([n.min(), n.max(), m.min(), m.max(), node_off[0],
+                     q_off[0], node_off[-1], q_off[-1]]).tolist()
+    if (n_min < 1 or m_min < 0 or n_first != 0 or q_first != 0
+            or n_last != ntot or q_last != mtot):
+        raise ValueError("inconsistent poa_dp batch: every pair needs a "
+                         "node, and the offsets run from 0 to the totals")
+    plan = poa_dp_plan(G, n_max, m_max,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count, ring_rows)
+    cells = (ntot + G) * plan["Wp"]
+    words = torch.empty(cells, dtype=torch.int32, device=dev)
+    score = (torch.empty(cells, dtype=torch.int32, device=dev)
+             if plan["far"] else None)
+    rank = torch.empty(ntot, dtype=torch.int32, device=dev)
+    meta = torch.empty((ntot, POA_STEP_META // 4), dtype=torch.int32,
+                       device=dev)
     lib = _lib("poa_dp")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.poa_dp_launch(
-        node_off.data_ptr(), wts.data_ptr(), topo.data_ptr(),
-        pred_off.data_ptr(), pred_idx.data_ptr(), term.data_ptr(),
-        q_off.data_ptr(), queries.data_ptr(), cells.data_ptr(),
-        ooff.data_ptr(), score.data_ptr(), kind.data_ptr(),
-        predm.data_ptr(), best.data_ptr(), ystart.data_ptr(),
-        nops.data_ptr(), ops.data_ptr(), G, threads, ge, match, mismatch,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"poa_dp launch failed: CUDA error {err}")
-    poa_dp.launches += 1
-    return best, ystart, nops, ops
+    args = (node_off.data_ptr(), wts.data_ptr(), topo.data_ptr(),
+            pred_off.data_ptr(), pred_idx.data_ptr(), term.data_ptr(),
+            q_off.data_ptr(), queries.data_ptr(), rank.data_ptr(),
+            meta.data_ptr(), score.data_ptr() if score is not None else None,
+            words.data_ptr(), best.data_ptr(), ystart.data_ptr(),
+            nops.data_ptr(), ops.data_ptr(), G, plan["strip"], plan["Wp"],
+            plan["ring"], plan["warps"], ge, match, mismatch, _stream(dev))
+
+    def launch():
+        err = lib.poa_dp_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"poa_dp launch failed: CUDA error {err}")
+
+    launch.keep = (words, score, rank, meta)
+    return launch, outs, plan
+
+
+def poa_dp(node_off: torch.Tensor, wts: torch.Tensor, topo: torch.Tensor,
+           pred_off: torch.Tensor, pred_idx: torch.Tensor,
+           term: torch.Tensor, q_off: torch.Tensor, queries: torch.Tensor,
+           *, ge: int = -1, match: int = 1, mismatch: int = -1):
+    """POA semiglobal DP and traceback of a batch of (graph, query) pairs
+    in ops/poa_device.export_batch's CSR layout: node_off int32 [G+1], wts
+    int64 [Ntot], topo int32 [Ntot], pred_off int32 [Ntot+1], pred_idx
+    int32 [Etot], term uint8 [Ntot], q_off int32 [G+1], queries int64
+    [Mtot].  Returns (best int32 [G], ystart int32 [G], nops int32 [G],
+    ops int32 [R, 3]): each pair's op rows (kind, pred, node) in traceback
+    order from ops_offsets(node_off, q_off)[g], -1 past nops.  CPU tensors
+    take the plain version (ops/poa_device.poa_dp_plain); CUDA tensors
+    launch csrc/poa_dp.cu (plan: poa_dp_plan)."""
+    if wts.device.type == "cpu":
+        return poa_dp_plain(node_off, wts, topo, pred_off, pred_idx, term,
+                            q_off, queries, ge=ge, match=match,
+                            mismatch=mismatch)
+    launch, outs, _ = poa_dp_launcher(
+        node_off, wts, topo, pred_off, pred_idx, term, q_off, queries,
+        ge=ge, match=match, mismatch=mismatch)
+    launch()
+    if node_off.shape[0] > 1:
+        poa_dp.launches += 1
+    return outs
 
 
 poa_dp.launches = 0

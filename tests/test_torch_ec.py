@@ -23,10 +23,29 @@ from rust_mdbg_tpu_torch.ops import align, kernels, poa_device, u64
 torch.set_num_threads(2)
 
 
+#: the scorer's edge shapes: Q + 1 at each strip edge of the kernel (31,
+#: 32, 33, 64, 65 columns, 32 x 16 = 512 and 513), T = 0, every qlen 0
+SCORES_EDGES = [f"Q{q}" for q in (30, 31, 32, 63, 64, 511, 512)] + \
+    ["T0", "qlen0"]
+
+
 def _scores_inputs(seed):
     """A template and ragged queries over a small alphabet (many ties),
     with the edge cases T = 1, Q = 1, an empty query and queries longer
-    than the template."""
+    than the template; or, for a name of SCORES_EDGES, that edge shape
+    (the widest query exactly Q long, an empty one beside it)."""
+    if isinstance(seed, str):
+        rng = np.random.default_rng(len(seed) * 7 + ord(seed[-1]))
+        T = 0 if seed == "T0" else 40
+        template = [int(x) for x in rng.integers(0, 5, T)]
+        if seed == "qlen0":
+            return template, [[], []]
+        q = 5 if seed == "T0" else int(seed[1:])
+        lens = [q, q // 2, 0, 1, q]
+        queries = [[int(x) for x in rng.integers(0, 5, n)] for n in lens]
+        if T:
+            queries[-1] = (template * (q // T + 1))[:q]
+        return template, queries
     rng = np.random.default_rng(seed)
     T = [1, 7, 60, 130][seed % 4]
     template = [int(x) for x in rng.integers(0, 9, T)]
@@ -37,7 +56,7 @@ def _scores_inputs(seed):
     return template, queries
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3] + SCORES_EDGES)
 def test_scores_plain_matches_numpy_twin_and_jax_scan(seed):
     template, queries = _scores_inputs(seed)
     got = align.semiglobal_scores_batch(template, queries, device="cpu")
@@ -151,9 +170,50 @@ def _triple(a):
     return a.score, a.ystart, a.operations
 
 
-@pytest.mark.parametrize("seed", [3, 17])
+#: the POA DP's edge shapes: m + 1 at each strip edge of the kernel (31,
+#: 32, 33, 64, 65, 512, 513 columns), a one-node graph, a hub (in-degree
+#: 0 at the sources and above 8 at the hub) and the widest pair of the
+#: batch beside the smallest
+POA_EDGES = [f"m{m}" for m in (30, 31, 32, 63, 64, 511, 512)] + \
+    ["n1", "hub", "widest_with_smallest"]
+
+
+def _twin_edge(case):
+    """The graphs and queries of a POA_EDGES case, as the port's and as
+    the JAX package's PoaGraph (same seed)."""
+    out = []
+    for cls in (PoaGraph, JaxPoaGraph):
+        rng = np.random.default_rng(len(case) * 11 + ord(case[-1]))
+        alphabet = rng.integers(1, 1 << 60, 40).astype(np.uint64)
+        if case.startswith("m"):
+            m = int(case[1:])
+            g, t = _grow(cls, rng, alphabet, max(4, m), 3)
+            gs = [g, g]
+            qs = [(_mut(rng, t, alphabet) * 3)[:m], (t * 2)[:m]]
+        elif case == "n1":
+            one = cls([int(alphabet[0])], "ACGT", [0])
+            gs = [one] * 3
+            qs = [[int(alphabet[0])], [int(alphabet[1])],
+                  [int(alphabet[0])] * 5]
+        elif case == "hub":
+            hub, t = _grow(cls, rng, alphabet[:12], 12, 40, hub=True)
+            gs = [hub, hub]
+            qs = [_mut(rng, t, alphabet[:12]), t * 3]
+        else:
+            big, t = _grow(cls, rng, alphabet, 300, 4)
+            one = cls([int(alphabet[0])], "ACGT", [0])
+            gs = [big, one, big]
+            qs = [(t * 2)[:600], [int(alphabet[1])], _mut(rng, t, alphabet)]
+        out.append((gs, qs))
+    return out
+
+
+@pytest.mark.parametrize("seed", [3, 17] + POA_EDGES)
 def test_poa_dp_plain_matches_jax_and_host(seed):
-    (gs, qs), (jgs, jqs) = _twin_graphs(seed, 24)
+    """The plain batched DP = the JAX package's device DP = the host DP,
+    on 24 grown graphs a seed and on each edge shape."""
+    (gs, qs), (jgs, jqs) = (_twin_graphs(seed, 24) if isinstance(seed, int)
+                            else _twin_edge(seed))
     assert qs == jqs
     got = poa_device.poa_semiglobal_device(gs, qs, device="cpu")
     want_jax = jax_poa_device(jgs, jqs)
@@ -219,13 +279,106 @@ def _cuda_or_skip():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
+@pytest.mark.parametrize("width, strip", [
+    (1, 1), (31, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4),
+    (129, 6), (192, 6), (193, 8), (256, 8), (257, 9), (288, 9), (289, 10),
+    (320, 10), (321, 11), (352, 11), (353, 12), (384, 12), (385, 16),
+    (512, 16), (513, 16), (5001, 16)])
+def test_strip_for_covers_the_width(width, strip):
+    """The narrowest strip whose 32 lanes cover the width; past 32 x 16
+    columns the widest (register tiles)."""
+    assert kernels.strip_for(width) == strip
+
+
+@pytest.mark.parametrize("B, T, Q", [(16, 279, 281), (1, 0, 0), (3, 17, 5000),
+                                     (160, 300, 300), (5, 40, 511),
+                                     (5, 40, 512)])
+def test_semiglobal_scores_plan(B, T, Q):
+    """Queries a block (four, or B when fewer), blocks for all B, one
+    register tile up to Q + 1 = 512 columns, and the boundary scratch (2 x
+    (T + 1) ints a query) only past it."""
+    plan = kernels.semiglobal_scores_plan(B, T, Q)
+    assert plan["strip"] == kernels.strip_for(Q + 1)
+    assert plan["warps"] == min(4, max(B, 1))
+    assert plan["blocks"] * plan["warps"] >= B > (plan["blocks"] - 1) * \
+        plan["warps"] or B == 0
+    assert plan["tiles"] == -(-(Q + 1) // (32 * plan["strip"]))
+    assert plan["scratch"] == (2 * (T + 1) * B if Q + 1 > 512 else 0)
+
+
+@pytest.mark.parametrize("G, n_max, m_max, ring_rows, want", [
+    # the lockstep leg's widest launch: one pair a block, a 16-row ring
+    (112, 330, 327, None, dict(strip=11, Wp=352, warps=1, ring=16,
+                               far=True)),
+    # more pairs than multiprocessors: up to four a block, the ring shrunk
+    # to the block's 227 KB
+    (600, 330, 1500, None, dict(strip=16, Wp=1536, warps=4, ring=8,
+                                far=True)),
+    (3, 10, 40, None, dict(strip=2, Wp=64, warps=1, ring=16, far=False)),
+    (3, 10, 200, None, dict(strip=8, Wp=256, warps=1, ring=16, far=False)),
+    (3, 1200, 1500, 0, dict(strip=16, Wp=1536, warps=1, ring=0, far=True)),
+    (3, 1200, 1500, 3, dict(strip=16, Wp=1536, warps=1, ring=2, far=True)),
+    (1, 1, 0, None, dict(strip=1, Wp=32, warps=1, ring=16, far=False)),
+    # rows too wide for two ring rows: no ring
+    (1, 50, 60000, None, dict(strip=16, Wp=60416, warps=1, ring=0,
+                              far=True)),
+])
+def test_poa_dp_plan(G, n_max, m_max, ring_rows, want):
+    plan = kernels.poa_dp_plan(G, n_max, m_max, 132, ring_rows)
+    assert {k: plan[k] for k in want} == want
+    assert plan["smem"] == plan["warps"] * (kernels.POA_META_BYTES +
+                                            4 * plan["ring"] * plan["Wp"])
+    assert plan["smem"] <= kernels.SMEM_PER_BLOCK
+    assert plan["blocks"] == -(-G // plan["warps"])
+
+
+def test_poa_dp_plan_refuses_what_the_packed_word_cannot_hold():
+    """pred + 1 sits above 2 bits of kind in an int32 word: n < 2^29."""
+    kernels.poa_dp_plan(1, (1 << 29) - 1, 10, 132)
+    for n in (0, 1 << 29):
+        with pytest.raises(ValueError, match="2\\^29"):
+            kernels.poa_dp_plan(1, n, 10, 132)
+
+
+def test_poa_dp_routes_count_every_predecessor():
+    """Each predecessor read goes one route: registers at topological
+    distance 1 (one register tile only), the ring below R, else global;
+    the counts match a direct walk of the graphs."""
+    (gs, qs), _ = _twin_graphs(17, 12)
+    hub, template = _grow(PoaGraph, np.random.default_rng(5),
+                          np.arange(1, 13, dtype=np.uint64), 12, 40,
+                          hub=True)
+    gs, qs = gs + [hub], qs + [template * 60]   # m + 1 > 512: no registers
+    b = poa_device.export_batch(gs, qs)
+    for ring in (0, 2, 16):
+        plan = kernels.poa_dp_plan(len(gs), max(len(g.weights) for g in gs),
+                                   max(map(len, qs)), 132, ring)
+        want = {"registers": 0, "ring": 0, "global": 0}
+        for g, q in zip(gs, qs):
+            rank = {v: i for i, v in enumerate(g.topo_order())}
+            for v, preds in enumerate(g.pred):
+                for p in preds:
+                    d = rank[v] - rank[p]
+                    if d == 1 and len(q) + 1 <= 32 * plan["strip"]:
+                        want["registers"] += 1
+                    elif d < plan["ring"]:
+                        want["ring"] += 1
+                    else:
+                        want["global"] += 1
+        got = kernels.poa_dp_routes(b["node_off"], b["topo"], b["pred_off"],
+                                    b["pred_idx"], b["q_off"], plan)
+        assert got == want
+        assert sum(got.values()) == len(b["pred_idx"])
+
+
 @pytest.mark.cuda
 def test_semiglobal_scores_kernel_matches_plain_on_the_card():
     """csrc/semiglobal_scores.cu = its plain version (run with `pytest -m
-    cuda` on a machine with a GPU and nvcc); a long query takes the
-    global-row path."""
+    cuda` on a machine with a GPU and nvcc): the seeded cases, every edge
+    shape of SCORES_EDGES, and long queries (register tiles with their
+    boundary scratch)."""
     _cuda_or_skip()
-    cases = [_scores_inputs(s) for s in range(4)]
+    cases = [_scores_inputs(s) for s in [0, 1, 2, 3] + SCORES_EDGES]
     cases.append(([5] * 40, [[5] * 13000, [5, 6] * 3000]))
     for template, queries in cases:
         qs, qlens = align.pad_queries(queries)
@@ -242,22 +395,38 @@ def test_semiglobal_scores_kernel_matches_plain_on_the_card():
 @pytest.mark.cuda
 def test_poa_dp_kernel_matches_plain_on_the_card():
     """csrc/poa_dp.cu = its plain version, every output (run with `pytest
-    -m cuda` on a machine with a GPU and nvcc)."""
+    -m cuda` on a machine with a GPU and nvcc): the fuzz, a hub beside a
+    one-node graph, B = 1 and every POA_EDGES shape, each with the
+    default ring, no ring and a two-row ring, so that every predecessor
+    route (registers, ring, global) is taken."""
     _cuda_or_skip()
     (gs, qs), _ = _twin_graphs(3, 24)
     rng = np.random.default_rng(5)
     alphabet = rng.integers(1, 1 << 60, 12).astype(np.uint64)
     hub, template = _grow(PoaGraph, rng, alphabet, 12, 40, hub=True)
     one = PoaGraph([int(alphabet[0])], "ACGT", [0])
-    for batch in ((gs, qs), ([hub, one], [template * 30, [7]]),
-                  ([one], [[int(alphabet[0])]])):
-        t = poa_device.batch_to_device(poa_device.export_batch(*batch),
-                                       "cuda")
+    batches = [(gs, qs), ([hub, one], [template * 30, [7]]),
+               ([one], [[int(alphabet[0])]])]
+    batches += [_twin_edge(case)[0] for case in POA_EDGES]
+    routes = {"registers": 0, "ring": 0, "global": 0}
+    for batch in batches:
+        b = poa_device.export_batch(*batch)
+        t = poa_device.batch_to_device(b, "cuda")
         args = [t[k] for k in ("node_off", "wts", "topo", "pred_off",
                                "pred_idx", "term", "q_off", "queries")]
-        before = kernels.poa_dp.launches
-        got = kernels.poa_dp(*args)
-        assert kernels.poa_dp.launches == before + 1
         want = poa_device.poa_dp_plain(*args)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        before = kernels.poa_dp.launches
+        for a, w in zip(kernels.poa_dp(*args), want):
+            assert torch.equal(a, w)
+        assert kernels.poa_dp.launches == before + 1
+        for ring in (None, 0, 2):
+            launch, got, plan = kernels.poa_dp_launcher(*args,
+                                                        ring_rows=ring)
+            launch()
+            for a, w in zip(got, want):
+                assert torch.equal(a, w)
+            for k, v in kernels.poa_dp_routes(
+                    b["node_off"], b["topo"], b["pred_off"], b["pred_idx"],
+                    b["q_off"], plan).items():
+                routes[k] += v
+    assert min(routes.values()) > 0, routes
