@@ -92,7 +92,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     columns, queries of 5,000 in register tiles; poa_dp: 24 grown graphs,
     in-degree > 8, more than 1,024 nodes, queries of 1,500 in register
     tiles, m + 1 at each strip edge, a one-node graph, B = 1, the widest
-    pair beside the smallest, each batch with the default ring, no ring
+    pair beside the smallest, 140 pairs (two a block: more pairs than
+    multiprocessors), each batch with the default ring, no ring
     and a two-row ring so that every predecessor route is taken, and the
     Alignments against the host DP); EC parity legs cuda = cpu in
     .ec_data, .postcor.ec_data, .poa.ec_data, .gfa and .sequences bytes
@@ -1788,6 +1789,7 @@ def check_poa_dp(torch, np) -> dict:
         "one node B=1": ([one], [[one.weights[0]]]),
         "one node, other symbol": ([one], [[sym[5], sym[6]]]),
         "widest beside smallest": ([big, one], [(bt * 4)[:1500], [sym[1]]]),
+        "fuzz B=140 (two pairs a block)": ((fuzz * 6)[:140], (fq * 6)[:140]),
     }
     for m in (30, 31, 32, 63, 64, 511, 512):
         g, t, mut = _grow_poa(np, rng, sym, max(4, m), 3)
@@ -1795,7 +1797,8 @@ def check_poa_dp(torch, np) -> dict:
     cases, host = {}, 0
     routes = {"registers": 0, "ring": 0, "global": 0}
     shapes = dict(max_nodes=len(big.weights),
-                  max_in_degree=max(len(p) for p in hub.pred))
+                  max_in_degree=max(len(p) for p in hub.pred),
+                  max_pairs_a_block=0)
     for name, (gs, qs) in batches.items():
         b = poa_device.export_batch(gs, qs)
         t = poa_device.batch_to_device(b, "cuda")
@@ -1806,6 +1809,8 @@ def check_poa_dp(torch, np) -> dict:
             launch()
             cases[f"{name}, ring {plan['ring']}"] = \
                 _dp_mismatches(torch, got, want)
+            shapes["max_pairs_a_block"] = max(shapes["max_pairs_a_block"],
+                                              plan["warps"])
             for k, v in kernels.poa_dp_routes(
                     b["node_off"], b["topo"], b["pred_off"], b["pred_idx"],
                     b["q_off"], plan).items():
@@ -1817,7 +1822,7 @@ def check_poa_dp(torch, np) -> dict:
                                            for g, q in zip(gs, qs))))
     cases["Alignments against the host DP"] = host
     if shapes["max_nodes"] <= 1024 or shapes["max_in_degree"] <= 8 or \
-            min(routes.values()) <= 0:
+            shapes["max_pairs_a_block"] < 2 or min(routes.values()) <= 0:
         raise SystemExit(f"poa_dp check: graphs too small or a route "
                          f"not taken {shapes} {routes}")
     return dict(name="poa_dp", mismatches=sum(cases.values()),

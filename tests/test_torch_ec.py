@@ -396,7 +396,8 @@ def test_semiglobal_scores_kernel_matches_plain_on_the_card():
 def test_poa_dp_kernel_matches_plain_on_the_card():
     """csrc/poa_dp.cu = its plain version, every output (run with `pytest
     -m cuda` on a machine with a GPU and nvcc): the fuzz, a hub beside a
-    one-node graph, B = 1 and every POA_EDGES shape, each with the
+    one-node graph, B = 1, 140 pairs (more than the multiprocessors:
+    several pairs a block) and every POA_EDGES shape, each with the
     default ring, no ring and a two-row ring, so that every predecessor
     route (registers, ring, global) is taken."""
     _cuda_or_skip()
@@ -406,7 +407,8 @@ def test_poa_dp_kernel_matches_plain_on_the_card():
     hub, template = _grow(PoaGraph, rng, alphabet, 12, 40, hub=True)
     one = PoaGraph([int(alphabet[0])], "ACGT", [0])
     batches = [(gs, qs), ([hub, one], [template * 30, [7]]),
-               ([one], [[int(alphabet[0])]])]
+               ([one], [[int(alphabet[0])]]),
+               ((gs * 6)[:140], (qs * 6)[:140])]   # two pairs a block
     batches += [_twin_edge(case)[0] for case in POA_EDGES]
     routes = {"registers": 0, "ring": 0, "global": 0}
     for batch in batches:
