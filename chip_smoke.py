@@ -92,10 +92,11 @@ Phases (any failure exits non-zero, and no result line is printed):
     columns, queries of 5,000 in register tiles; poa_dp: 24 grown graphs,
     in-degree > 8, more than 1,024 nodes, queries of 1,500 in register
     tiles, m + 1 at each strip edge, a one-node graph, B = 1, the widest
-    pair beside the smallest, 140 pairs (two a block: more pairs than
+    pair beside the smallest, 140 pairs (more pairs than
     multiprocessors), each batch with the default ring, no ring
-    and a two-row ring so that every predecessor route is taken, and the
-    Alignments against the host DP); EC parity legs cuda = cpu in
+    and a two-row ring so that the kernel's count shows every
+    predecessor route taken, and the Alignments against the host DP);
+    EC parity legs cuda = cpu in
     .ec_data, .postcor.ec_data, .poa.ec_data, .gfa and .sequences bytes
     (the sequential driver with triage, the lockstep driver, --ec-procs
     2, --restart-from-postcor);
@@ -108,11 +109,6 @@ Phases (any failure exits non-zero, and no result line is printed):
     launch of its leg, against its plain version there: launch_ms (the
     bare launch, the table's ms) and wrapper_ms (checks, host sync and
     allocation included).
-
-`--ec-ab PARENT` runs only the two EC main legs and then holds both EC
-kernels against those of an earlier tree unpacked at PARENT (its
-rust_mdbg_tpu_torch/csrc), bare launches in turns; it prints "EC kernel
-A/B:" and no last line.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -1693,7 +1689,8 @@ def check_semiglobal_scores(torch, np) -> dict:
     longer than the template, B not a multiple of the block's four warps,
     T = 0, the EC shape (B = 160, T and Q near 300), Q + 1 at each strip
     edge (31, 32, 33, 64, 65, 512 and 513 columns) and queries of 5,000
-    (ten register tiles: the tile boundaries in global scratch)."""
+    (ten register tiles: the tile boundaries in global scratch); the bare
+    launch and the counting wrapper both."""
     from rust_mdbg_tpu_torch.ops import align, kernels
 
     cases = {}
@@ -1708,9 +1705,10 @@ def check_semiglobal_scores(torch, np) -> dict:
         launch, got, plan = kernels.semiglobal_scores_launcher(*args)
         launch()
         want = align.semiglobal_scores_plain(*args)
+        wrapped = kernels.semiglobal_scores(*args)
         cases[f"T={T} B={len(lens)} Q={max(lens)} alphabet={n_sym} "
               f"strip={plan['strip']} tiles={plan['tiles']}"] = \
-            int((got != want).sum())
+            int((got != want).sum()) + int((wrapped != want).sum())
     return dict(name="semiglobal_scores", mismatches=sum(cases.values()),
                 cases=cases)
 
@@ -1764,11 +1762,13 @@ def check_poa_dp(torch, np) -> dict:
     (the JAX package's fuzz), a node of in-degree > 8, a graph of more
     than 1,024 nodes with queries of 1,500 (three register tiles), a
     one-node graph, B = 1, m + 1 at each strip edge (31, 32, 33, 64, 65,
-    512 and 513 columns), the widest pair beside the smallest; each batch
-    with the default ring, with no ring (every read past the previous row
-    from global memory) and with a ring of two rows, so that each
-    predecessor route (registers, ring, global) is taken; and each
-    graph's Alignment against the host DP (PoaGraph.semiglobal)."""
+    512 and 513 columns), the widest pair beside the smallest, 140 pairs;
+    each batch through the counting wrapper, and as bare launches with the
+    default ring, with no ring (every read past the previous row from
+    global memory) and with a ring of two rows, whose count of
+    predecessor reads by route (the kernel's own) shows each route
+    (registers, ring, global) taken; and each graph's Alignment against
+    the host DP (PoaGraph.semiglobal)."""
     from rust_mdbg_tpu_torch.ops import kernels, poa_device
 
     rng = np.random.default_rng(3)
@@ -1789,40 +1789,37 @@ def check_poa_dp(torch, np) -> dict:
         "one node B=1": ([one], [[one.weights[0]]]),
         "one node, other symbol": ([one], [[sym[5], sym[6]]]),
         "widest beside smallest": ([big, one], [(bt * 4)[:1500], [sym[1]]]),
-        "fuzz B=140 (two pairs a block)": ((fuzz * 6)[:140], (fq * 6)[:140]),
+        "fuzz B=140": ((fuzz * 6)[:140], (fq * 6)[:140]),
     }
     for m in (30, 31, 32, 63, 64, 511, 512):
         g, t, mut = _grow_poa(np, rng, sym, max(4, m), 3)
         batches[f"m={m}"] = ([g, g], [(mut(t) * 3)[:m], (t * 2)[:m]])
     cases, host = {}, 0
-    routes = {"registers": 0, "ring": 0, "global": 0}
+    routes = [0, 0, 0]
     shapes = dict(max_nodes=len(big.weights),
-                  max_in_degree=max(len(p) for p in hub.pred),
-                  max_pairs_a_block=0)
+                  max_in_degree=max(len(p) for p in hub.pred))
     for name, (gs, qs) in batches.items():
-        b = poa_device.export_batch(gs, qs)
-        t = poa_device.batch_to_device(b, "cuda")
+        t = poa_device.batch_to_device(poa_device.export_batch(gs, qs),
+                                       "cuda")
         want = poa_device.poa_dp_plain(*_dp_args(t))
+        cases[f"{name}, wrapper"] = _dp_mismatches(
+            torch, kernels.poa_dp(*_dp_args(t)), want)
         for ring in (None, 0, 2):
-            launch, got, plan = kernels.poa_dp_launcher(*_dp_args(t),
-                                                        ring_rows=ring)
+            launch, got, plan = kernels.poa_dp_launcher(
+                *_dp_args(t), ring_rows=ring, count_routes=True)
             launch()
             cases[f"{name}, ring {plan['ring']}"] = \
                 _dp_mismatches(torch, got, want)
-            shapes["max_pairs_a_block"] = max(shapes["max_pairs_a_block"],
-                                              plan["warps"])
-            for k, v in kernels.poa_dp_routes(
-                    b["node_off"], b["topo"], b["pred_off"], b["pred_idx"],
-                    b["q_off"], plan).items():
-                routes[k] += v
+            routes = [x + y for x, y in zip(routes, launch.routes.tolist())]
         alns = poa_device.poa_semiglobal_device(gs, qs, device="cuda")
         host += sum((a.score, a.ystart, a.operations) !=
                     (h.score, h.ystart, h.operations)
                     for a, h in zip(alns, (g.semiglobal(q)
                                            for g, q in zip(gs, qs))))
     cases["Alignments against the host DP"] = host
+    routes = dict(zip(("registers", "ring", "global"), routes))
     if shapes["max_nodes"] <= 1024 or shapes["max_in_degree"] <= 8 or \
-            shapes["max_pairs_a_block"] < 2 or min(routes.values()) <= 0:
+            min(routes.values()) <= 0:
         raise SystemExit(f"poa_dp check: graphs too small or a route "
                          f"not taken {shapes} {routes}")
     return dict(name="poa_dp", mismatches=sum(cases.values()),
@@ -1942,8 +1939,8 @@ class EcKernelLog:
 
 
 def time_semiglobal_scores(torch, np, args) -> dict:
-    """The scorer at the widest launch of the sequential EC leg: kernel =
-    plain there, and CUDA-event times of the bare launch (launch_ms: the
+    """The scorer at the widest launch of the sequential EC leg: bare
+    launch = wrapper = plain there, and CUDA-event times of the bare launch (launch_ms: the
     ctypes call alone on outputs allocated once) and of the wrapper
     (wrapper_ms: its checks, host sync, allocation and launch), and its
     bound against launch_ms.  Bytes: the template (8 B a symbol), the
@@ -1957,7 +1954,8 @@ def time_semiglobal_scores(torch, np, args) -> dict:
     launch, got, plan = kernels.semiglobal_scores_launcher(*args)
     launch()
     want = align.semiglobal_scores_plain(*args)
-    mism = int((got != want).sum())
+    mism = int((got != want).sum()) + \
+        int((kernels.semiglobal_scores(*args) != want).sum())
     launch_ms = cuda_time_ms(launch, 200)
     wrapper_ms = cuda_time_ms(lambda: kernels.semiglobal_scores(*args), 200)
     plain_ms = cuda_time_ms(lambda: align.semiglobal_scores_plain(*args), 3)
@@ -1978,8 +1976,9 @@ def time_semiglobal_scores(torch, np, args) -> dict:
 
 
 def time_poa_dp(torch, np, args) -> dict:
-    """The POA DP at the widest launch of the lockstep EC leg: kernel =
-    plain there, CUDA-event times of the bare launch (launch_ms: the
+    """The POA DP at the widest launch of the lockstep EC leg: bare
+    launch = wrapper = plain there (the bare launch also counts its
+    predecessor reads by route), CUDA-event times of the bare launch (launch_ms: the
     ctypes call alone on outputs and scratch allocated once) and of the
     wrapper (wrapper_ms), the plain version's time (one call: N steps of
     torch ops and a host traceback), and its bound against launch_ms.
@@ -1991,10 +1990,14 @@ def time_poa_dp(torch, np, args) -> dict:
     the scan and the writes."""
     from rust_mdbg_tpu_torch.ops import kernels, poa_device
 
-    launch, got, plan = kernels.poa_dp_launcher(*args)
-    launch()
+    counted, got, plan = kernels.poa_dp_launcher(*args, count_routes=True)
+    counted()
     want = poa_device.poa_dp_plain(*args)
-    mism = _dp_mismatches(torch, got, want)
+    mism = _dp_mismatches(torch, got, want) + \
+        _dp_mismatches(torch, kernels.poa_dp(*args), want)
+    routes = dict(zip(("registers", "ring", "global"),
+                      counted.routes.tolist()))
+    launch, _, _ = kernels.poa_dp_launcher(*args)
     launch_ms = cuda_time_ms(launch, 50)
     wrapper_ms = cuda_time_ms(lambda: kernels.poa_dp(*args), 50)
     torch.cuda.synchronize()
@@ -2017,9 +2020,7 @@ def time_poa_dp(torch, np, args) -> dict:
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return dict(shape=dict(G=G, cells=int((n * m).sum()),
                            max_n=int(n.max()), max_m=int(m.max())),
-                plan=plan, routes=kernels.poa_dp_routes(
-                    node_off.numpy(), topo.numpy(), pred_off.numpy(),
-                    pred_idx.numpy(), q_off.numpy(), plan),
+                plan=plan, routes=routes,
                 mismatches=mism, max_abs_err=float(
                     (got[0] - want[0]).abs().max()) if G else 0.0,
                 ms=launch_ms, launch_ms=launch_ms, wrapper_ms=wrapper_ms,
@@ -2027,125 +2028,6 @@ def time_poa_dp(torch, np, args) -> dict:
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
                 bound_share=max(t_bytes, t_ops) / launch_ms)
-
-
-def _parent_launchers(torch, parent: str, tmp: str, sargs, dargs):
-    """The EC kernels of an earlier tree (the C interfaces they had before
-    the warp redesign: the scorer with its global-row scratch query, the
-    block-per-pair POA DP with its 9 B cells), built from `parent`'s csrc/
-    by nvcc, as bare launches on outputs and scratch allocated once:
-    ({name: launch}, {name: outputs})."""
-    import ctypes
-
-    from rust_mdbg_tpu_torch.ops import kernels, poa_device
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    libs, procs = {}, {}
-    for name in ("semiglobal_scores", "poa_dp"):
-        src = os.path.join(parent, "rust_mdbg_tpu_torch", "csrc", name + ".cu")
-        so = os.path.join(tmp, f"parent_{name}.so")
-        procs[name] = (subprocess.Popen(
-            [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
-             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), so)
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"parent {name} build failed:\n{log}")
-        libs[name] = ctypes.CDLL(so)
-    stream = torch.cuda.current_stream().cuda_stream
-    sg = libs["semiglobal_scores"]
-    sg.semiglobal_scores_launch.argtypes = [P, I, P, P, I, I, P, P, I, I, I,
-                                            P]
-    sg.semiglobal_scores_scratch.argtypes = [I, I]
-    sg.semiglobal_scores_scratch.restype = ctypes.c_longlong
-    t, q, ql = sargs
-    B, Q = q.shape
-    s_out = torch.empty(B, dtype=torch.int32, device=q.device)
-    need = sg.semiglobal_scores_scratch(B, Q)
-    s_scr = torch.empty(max(need, 1), dtype=torch.int32, device=q.device)
-
-    def old_scores():
-        if sg.semiglobal_scores_launch(
-                t.data_ptr(), t.shape[0], q.data_ptr(), ql.data_ptr(), B, Q,
-                s_out.data_ptr(), s_scr.data_ptr() if need else None, -1, 1,
-                -1, stream):
-            raise RuntimeError("parent semiglobal_scores launch failed")
-
-    dp = libs["poa_dp"]
-    dp.poa_dp_launch.argtypes = [P] * 17 + [I] * 5 + [P]
-    node_off, wts, topo, pred_off, pred_idx, term, q_off, queries = dargs
-    G = node_off.numel() - 1
-    n = node_off[1:] - node_off[:-1]
-    m = q_off[1:] - q_off[:-1]
-    cells = torch.cat([n.new_zeros(1, dtype=torch.int64), torch.cumsum(
-        (n.long() + 1) * (m.long() + 1), 0)])
-    ooff = poa_device.ops_offsets(node_off, q_off)
-    total, rows, m_max = (int(cells[-1]), int(ooff[-1]), int(m.max()))
-    dev = wts.device
-    d_out = [torch.empty(G, dtype=torch.int32, device=dev) for _ in range(3)]
-    d_out.append(torch.full((rows, 3), -1, dtype=torch.int32, device=dev))
-    scratch = (torch.empty(total, dtype=torch.int32, device=dev),
-               torch.empty(total, dtype=torch.int8, device=dev),
-               torch.empty(total, dtype=torch.int32, device=dev))
-    threads = min(1024, max(64, (m_max + 1 + 31) // 32 * 32))
-
-    def old_dp():
-        if dp.poa_dp_launch(*(a.data_ptr() for a in (
-                node_off, wts, topo, pred_off, pred_idx, term, q_off,
-                queries, cells, ooff) + scratch + tuple(d_out)),
-                G, threads, -1, 1, -1, stream):
-            raise RuntimeError("parent poa_dp launch failed")
-
-    return (dict(semiglobal_scores=old_scores, poa_dp=old_dp),
-            dict(semiglobal_scores=s_out, poa_dp=d_out))
-
-
-def ec_kernel_ab(torch, np, parent: str, tmp: str) -> dict:
-    """`--ec-ab PARENT`: the two EC kernels of this tree against those of
-    an earlier tree unpacked at PARENT, at the EC main legs' widest
-    launches (the legs run first, as in the full run), in one process on
-    one card: bare launches on outputs allocated once, CUDA events, in
-    turns (parent, this, this, parent); both held to the plain versions."""
-    from rust_mdbg_tpu_torch.ops import align, kernels, poa_device
-
-    widest, legs = {}, {}
-    for leg, device_poa, mbp in (("sequential", False, EC_SEQ_GENOME_MBP),
-                                 ("lockstep", True, EC_GENOME_MBP)):
-        res = ec_main(tmp, device_poa, mbp)
-        widest[leg] = res.pop("_widest")
-        legs[leg] = dict(reads_per_s=res["reads_per_s"],
-                         identity=[res["report"]["ec_before_identity"],
-                                   res["report"]["ec_after_identity"]],
-                         launches=res["launches"])
-    sargs, dargs = widest["sequential"]["scores"], widest["lockstep"]["dp"]
-    old, old_out = _parent_launchers(torch, parent, tmp, sargs, dargs)
-    new_s, new_s_out, _ = kernels.semiglobal_scores_launcher(*sargs)
-    new_d, new_d_out, _ = kernels.poa_dp_launcher(*dargs)
-    new = dict(semiglobal_scores=new_s, poa_dp=new_d)
-    for f in list(old.values()) + list(new.values()):
-        f()
-    torch.cuda.synchronize()
-    want_s = align.semiglobal_scores_plain(*sargs)
-    want_d = poa_device.poa_dp_plain(*dargs)
-    out = dict(legs=legs, mismatches=dict(
-        parent_scores=int((old_out["semiglobal_scores"] != want_s).sum()),
-        scores=int((new_s_out != want_s).sum()),
-        parent_dp=_dp_mismatches(torch, old_out["poa_dp"], want_d),
-        dp=_dp_mismatches(torch, new_d_out, want_d)))
-    iters = dict(semiglobal_scores=200, poa_dp=50)
-    for name in ("semiglobal_scores", "poa_dp"):
-        times = [cuda_time_ms(f, iters[name])
-                 for f in (old[name], new[name], new[name], old[name])]
-        out[name] = dict(parent_ms=[times[0], times[3]],
-                         ms=[times[1], times[2]],
-                         shape=(dict(B=sargs[1].shape[0],
-                                     T=sargs[0].shape[0],
-                                     Q=sargs[1].shape[1])
-                                if name == "semiglobal_scores" else
-                                dict(G=dargs[0].numel() - 1)))
-    return out
 
 
 def _noisy_reads(np, path: str, seed: int, n_reads: int, genome_len: int,
@@ -2312,9 +2194,6 @@ def main() -> int:
     ap.add_argument("--genome-mbp", type=float, default=20,
                     help="genome size of the main-path leg (cut only if "
                          "the time limit forces it)")
-    ap.add_argument("--ec-ab", metavar="PARENT",
-                    help="only the EC main legs, then their two kernels "
-                         "against those of the tree unpacked at PARENT")
     args = ap.parse_args()
 
     import torch
@@ -2338,19 +2217,6 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, (sec, log) in logs.items():
         print(f"# nvcc {name} ({sec:.3f} s):\n{log.strip()}", flush=True)
-    if args.ec_ab:
-        tmp = os.path.join(HERE, ".smoke_tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        try:
-            ab = ec_kernel_ab(torch, np, args.ec_ab, tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        print(f"EC kernel A/B: {json.dumps(ab)}", flush=True)
-        print(nvidia_smi(), flush=True)
-        bad = sum(ab["mismatches"].values())
-        return 1 if bad else 0
-
     hash_bound = Params(k=21, l=14, density=0.003).hash_bound
     rows = [check_nthash_select(torch, np, hash_bound),
             check_syncmer_select(torch, np)]

@@ -28,8 +28,11 @@
 // dependent steps.  The EC legs launch 2-112 pairs, so at most 112 warps
 // run on the card, each alone on its scheduler: a step costs its latency.
 //
-// Design: one warp a pair, several pairs a block (one until the pairs
-// outnumber the multiprocessors), no block barrier.  Lane l owns a strip
+// Design: one warp a pair and a block, no block barrier.  The warps of a
+// block would share nothing: one-warp blocks already share a
+// multiprocessor as far as its shared memory allows (2 KB + 4 x R x Wp B a
+// block), and a block of several pairs would need as many bytes a pair.
+// Lane l owns a strip
 // of C contiguous columns (l*C .. l*C + C - 1), C a template parameter
 // (1, 2, 4, 6, 8 to 12, 16: the smallest that covers the launch's widest
 // m + 1); a wider query is taken in register tiles of 32 x C columns, one
@@ -60,7 +63,9 @@
 // before later steps.  Rows are stored strip-major (column j of a tile at
 // (j % C) * 32 + j / C), so each load and store is one 128 B line a warp.
 // The three routes live in this one kernel; R = 0 sends every read past
-// d = 1 to global memory.
+// d = 1 to global memory.  When asked (a non-null `routes`), the pass also
+// counts the predecessor reads of each route, the same rule the DP then
+// follows, so that a check on the card sees which routes were taken.
 //
 // Traceback.  Kind and pred are packed in one 32-bit word a cell (kind in
 // 2 bits, pred + 1 above: n < 2^29, asserted by the wrapper), 4 B a cell
@@ -116,8 +121,10 @@ __device__ void prepare_pair(const long long* __restrict__ w,
                              const int* __restrict__ po,
                              const int* __restrict__ pred_idx,
                              const unsigned char* __restrict__ te, int n,
-                             int R, bool reg, int* rk, StepMeta* gm) {
+                             int R, bool reg, int* rk, StepMeta* gm,
+                             int* routes) {
     const int lane = threadIdx.x & 31;
+    int taken[3] = {0, 0, 0};  // predecessor reads by route
     for (int t = lane; t < n; t += 32) rk[tp[t]] = t;
     __syncwarp();
     for (int t0 = 0; t0 < n; t0 += 128) {  // four steps a lane in flight
@@ -155,18 +162,23 @@ __device__ void prepare_pair(const long long* __restrict__ w,
                 md.p[k] = p[u][k];
                 md.r[k] = has ? rk[p[u][k]] & kRankMask : 0;
                 const int route = route_of(t - md.r[k], reg, R);
+                if (has) ++taken[route];
                 if (has && route == kRouteRing) atomicOr(rk + p[u][k], kRing);
                 if (has && route == kRouteGlobal) atomicOr(rk + p[u][k], kFar);
             }
             for (int e = e0[u] + kPB; e < e1[u]; ++e) {  // in-degree > 4
                 const int q = pred_idx[e];
                 const int route = route_of(t - (rk[q] & kRankMask), reg, R);
+                ++taken[route];
                 if (route == kRouteRing) atomicOr(rk + q, kRing);
                 if (route == kRouteGlobal) atomicOr(rk + q, kFar);
             }
             gm[t] = md;
         }
     }
+    if (routes != nullptr)
+        for (int k = 0; k < 3; ++k)
+            if (taken[k]) atomicAdd(routes + k, taken[k]);
     __syncwarp();
     for (int t = lane; t < n; t += 32) {
         const int f = rk[gm[t].node];
@@ -182,7 +194,6 @@ struct Pair {
     const int* pred_idx;
     int* rk;
     const StepMeta* gm;
-    int warp, warps;  // this warp's shared memory: meta, then the ring
     int* K;
     int* S;
 };
@@ -198,10 +209,8 @@ __device__ __forceinline__ long long dp_rows(const Pair& a) {
     const int lane = threadIdx.x & 31;
     const int rmask = a.R - 1;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    StepMeta* meta = reinterpret_cast<StepMeta*>(smem_raw) + a.warp * 32;
-    int* ring = reinterpret_cast<int*>(smem_raw + a.warps * 32 *
-                                                      sizeof(StepMeta)) +
-                static_cast<size_t>(a.warp) * a.R * a.Wp;
+    StepMeta* meta = reinterpret_cast<StepMeta*>(smem_raw);
+    int* ring = reinterpret_cast<int*>(smem_raw + 32 * sizeof(StepMeta));
     long long key = LLONG_MIN;
     long long qs[C];
     auto load_strip = [&](int tile) {
@@ -373,15 +382,13 @@ __global__ void poa_dp_kernel(
     const int* __restrict__ topo, const int* __restrict__ pred_off,
     const int* __restrict__ pred_idx, const unsigned char* __restrict__ term,
     const int* __restrict__ q_off, const long long* __restrict__ queries,
-    int* rank, StepMeta* gmeta, int* score, int* words,
+    int* rank, StepMeta* gmeta, int* score, int* words, int* routes,
     int* __restrict__ best_out, int* __restrict__ ystart_out,
     int* __restrict__ nops_out, int* __restrict__ ops, int G, int Wp, int R,
     int ge, int match, int mismatch) {
     constexpr int kTile = 32 * C;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wpb = blockDim.x >> 5;
-    const int g = blockIdx.x * wpb + warp;
-    if (g >= G) return;  // a whole warp leaves: no block barrier below
+    const int lane = threadIdx.x;
+    const int g = blockIdx.x;
     const int n0 = node_off[g], n = node_off[g + 1] - n0;
     const int q0 = q_off[g], m = q_off[g + 1] - q0;
     const int ntiles = (m + 1 + kTile - 1) / kTile;
@@ -395,13 +402,13 @@ __global__ void poa_dp_kernel(
     int* S = score != nullptr ? score + mat : nullptr;
 
     prepare_pair(wts + n0, tp, pred_off + n0, pred_idx, term + n0, n, R, reg,
-                 rk, gm);
+                 rk, gm, routes);
 
     // the owner of column m keeps the terminal key (score, node)
     const int tm = m / kTile, jm = m - tm * kTile;
     const int lm = jm / C, cm = jm - lm * C;
     Pair a{n, m, ntiles, Wp, R, ge, match, mismatch, tm, lm, cm, q,
-           pred_idx, rk, gm, warp, wpb, K, S};
+           pred_idx, rk, gm, K, S};
     long long key = reg ? dp_rows<C, true>(a) : dp_rows<C, false>(a);
     __syncwarp();  // the traceback reads every lane's words
 
@@ -467,12 +474,11 @@ template <int C>
 int launch(const void* node_off, const void* wts, const void* topo,
            const void* pred_off, const void* pred_idx, const void* term,
            const void* q_off, const void* queries, void* rank, void* meta,
-           void* score, void* words, void* best, void* ystart, void* nops,
-           void* ops,
-           int G, int Wp, int R, int warps, int ge, int match, int mismatch,
-           cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(warps) *
-                        (32 * sizeof(StepMeta) + sizeof(int) * R * Wp);
+           void* score, void* words, void* routes, void* best, void* ystart,
+           void* nops, void* ops, int G, int Wp, int R, int ge, int match,
+           int mismatch, cudaStream_t stream) {
+    const size_t smem = 32 * sizeof(StepMeta) +
+                        sizeof(int) * static_cast<size_t>(R) * Wp;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             poa_dp_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -485,8 +491,7 @@ int launch(const void* node_off, const void* wts, const void* topo,
         poa_dp_kernel<C>, cudaFuncAttributePreferredSharedMemoryCarveout,
         static_cast<int>(cudaSharedmemCarveoutMaxL1));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int blocks = (G + warps - 1) / warps;
-    poa_dp_kernel<C><<<blocks, 32 * warps, smem, stream>>>(
+    poa_dp_kernel<C><<<G, 32, smem, stream>>>(
         static_cast<const int*>(node_off), static_cast<const long long*>(wts),
         static_cast<const int*>(topo), static_cast<const int*>(pred_off),
         static_cast<const int*>(pred_idx),
@@ -494,7 +499,7 @@ int launch(const void* node_off, const void* wts, const void* topo,
         static_cast<const int*>(q_off),
         static_cast<const long long*>(queries), static_cast<int*>(rank),
         static_cast<StepMeta*>(meta), static_cast<int*>(score),
-        static_cast<int*>(words),
+        static_cast<int*>(words), static_cast<int*>(routes),
         static_cast<int*>(best), static_cast<int*>(ystart),
         static_cast<int*>(nops), static_cast<int*>(ops), G, Wp, R, ge, match,
         mismatch);
@@ -505,28 +510,28 @@ int launch(const void* node_off, const void* wts, const void* topo,
 
 // strip: columns a lane holds (1, 2, 4, 6, 8 to 12, or 16); Wp: words a
 // matrix row (a multiple of 32 x strip covering every pair's m + 1); R:
-// ring rows in shared memory (0 or a power of two); warps: pairs a block.
-// Scratch:
-// rank (one int a node), meta (64 B a node), words ((Ntot + G) x Wp
-// ints), score (the same size; may be null when no pair has n > R).
+// ring rows in shared memory (0 or a power of two).  Scratch: rank (one
+// int a node), meta (64 B a node), words ((Ntot + G) x Wp ints), score
+// (the same size; may be null when no pair has n > R).  routes: null, or
+// three zeroed ints that the launch adds its predecessor reads to by route
+// (registers, ring, global).
 extern "C" int poa_dp_launch(const void* node_off, const void* wts,
                              const void* topo, const void* pred_off,
                              const void* pred_idx, const void* term,
                              const void* q_off, const void* queries,
                              void* rank, void* meta, void* score,
-                             void* words,
+                             void* words, void* routes,
                              void* best, void* ystart, void* nops, void* ops,
-                             int G, int strip, int Wp, int R, int warps,
+                             int G, int strip, int Wp, int R,
                              int ge, int match, int mismatch, void* stream) {
     if (G <= 0) return 0;
-    if (warps < 1 || warps > 32 || R < 0 || (R & (R - 1)) != 0 ||
-        Wp <= 0 || Wp % (32 * strip) != 0)
+    if (R < 0 || (R & (R - 1)) != 0 || Wp <= 0 || Wp % (32 * strip) != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define POA_LAUNCH(CC)                                                      \
     return launch<CC>(node_off, wts, topo, pred_off, pred_idx, term, q_off, \
-                      queries, rank, meta, score, words, best, ystart, nops, \
-                      ops, G, Wp, R, warps, ge, match, mismatch, s)
+                      queries, rank, meta, score, words, routes, best,     \
+                      ystart, nops, ops, G, Wp, R, ge, match, mismatch, s)
     switch (strip) {
         case 1: POA_LAUNCH(1);
         case 2: POA_LAUNCH(2);

@@ -21,7 +21,6 @@ import subprocess
 import threading
 import time
 
-import numpy as np
 import torch
 
 from . import u64
@@ -110,7 +109,7 @@ _ENTRY_POINTS = {
             [_P, _I, _P, _P, _I, _I, _P, _P] + [_I] * 5 + [_P],
     },
     "poa_dp": {
-        "poa_dp_launch": [_P] * 16 + [_I] * 8 + [_P],
+        "poa_dp_launch": [_P] * 17 + [_I] * 7 + [_P],
     },
 }
 
@@ -271,12 +270,10 @@ STRIPS = (1, 2, 4, 6, 8, 9, 10, 11, 12, 16)
 SMEM_PER_BLOCK = 232_448
 #: POA DP: rows of the shared-memory ring (the rest are read from global)
 POA_RING_ROWS = 16
-#: POA DP: bytes of one step's metadata, and of one warp's 32 in shared
-#: memory
+#: POA DP: bytes of one step's metadata, and of the 32 in shared memory
 POA_STEP_META = 64
 POA_META_BYTES = 32 * POA_STEP_META
-#: POA DP: pairs a block at most; scorer: queries a block
-POA_WARPS_MAX = 4
+#: scorer: queries a block
 SCORES_WARPS = 4
 #: the POA DP packs pred + 1 above 2 bits of kind in an int32 word
 POA_MAX_NODES = 1 << 29
@@ -304,57 +301,27 @@ def semiglobal_scores_plan(B: int, T: int, Q: int) -> dict:
                 tiles=tiles, scratch=2 * (T + 1) * B if tiles > 1 else 0)
 
 
-def poa_dp_plan(G: int, n_max: int, m_max: int, sms: int,
+def poa_dp_plan(n_max: int, m_max: int,
                 ring_rows: int | None = None) -> dict:
-    """Launch plan of csrc/poa_dp.cu for G pairs of at most n_max nodes
-    and m_max query symbols on a card of `sms` multiprocessors: the strip,
-    the words a matrix row (Wp, whole register tiles), pairs a block (one
-    until the pairs outnumber the multiprocessors), the shared-memory ring
-    (rows R: a power of two, at most `ring_rows`, that fits the block's
-    shared memory; 0 sends every predecessor read to global), and whether
-    the global score matrix is needed (some pair has n > R)."""
+    """Launch plan of csrc/poa_dp.cu (one warp a pair and a block) for
+    pairs of at most n_max nodes and m_max query symbols: the strip, the
+    words a matrix row (Wp, whole register tiles), the shared-memory ring
+    (rows R: a power of two, at most `ring_rows`, that fits a block's
+    shared memory; 0 sends every predecessor read to global), whether the
+    global score matrix is needed (some pair has n > R), and the block's
+    shared memory."""
     if not 0 < n_max < POA_MAX_NODES:
         raise ValueError(f"poa_dp takes 1 <= n < 2^29 nodes a pair, got "
                          f"{n_max}")
     strip = strip_for(m_max + 1)
     tile = 32 * strip
     Wp = -(-(m_max + 1) // tile) * tile
-    warps = max(1, min(POA_WARPS_MAX, -(-G // max(1, sms))))
     want = POA_RING_ROWS if ring_rows is None else ring_rows
-    fit = (SMEM_PER_BLOCK // warps - POA_META_BYTES) // (4 * Wp)
+    fit = (SMEM_PER_BLOCK - POA_META_BYTES) // (4 * Wp)
     cap = min(want, fit)
     R = 1 << (cap.bit_length() - 1) if cap >= 2 else 0
-    return dict(strip=strip, Wp=Wp, warps=warps, ring=R,
-                far=n_max > R, blocks=-(-G // warps),
-                smem=warps * (POA_META_BYTES + 4 * R * Wp))
-
-
-def poa_dp_routes(node_off, topo, pred_off, pred_idx, q_off,
-                  plan: dict) -> dict:
-    """Where csrc/poa_dp.cu reads each predecessor row under `plan`
-    (numpy or CPU tensors in export_batch's layout): counts of
-    "registers" (the previous step's row, distance 1 in topological
-    order, when one register tile covers the query), "ring" (distance
-    below plan["ring"]) and "global"; one count a predecessor and a
-    pair."""
-    noff, po = np.asarray(node_off), np.asarray(pred_off)
-    tp, pi, qo = np.asarray(topo), np.asarray(pred_idx), np.asarray(q_off)
-    tile = 32 * plan["strip"]
-    out = {"registers": 0, "ring": 0, "global": 0}
-    for g in range(len(noff) - 1):
-        a, b = int(noff[g]), int(noff[g + 1])
-        rank = np.empty(b - a, dtype=np.int64)
-        rank[tp[a:b]] = np.arange(b - a)
-        one = int(qo[g + 1] - qo[g]) + 1 <= tile
-        deg = np.diff(po[a:b + 1])
-        owner = np.repeat(np.arange(b - a), deg)
-        d = rank[owner] - rank[pi[po[a]:po[b]]]
-        reg = (d == 1) & one
-        ring = ~reg & (d < plan["ring"])
-        out["registers"] += int(reg.sum())
-        out["ring"] += int(ring.sum())
-        out["global"] += int((~reg & ~ring).sum())
-    return out
+    return dict(strip=strip, Wp=Wp, ring=R, far=n_max > R,
+                smem=POA_META_BYTES + 4 * R * Wp)
 
 
 def _stream(dev) -> int:
@@ -437,13 +404,23 @@ def poa_dp_launcher(node_off: torch.Tensor, wts: torch.Tensor,
                     pred_idx: torch.Tensor, term: torch.Tensor,
                     q_off: torch.Tensor, queries: torch.Tensor, *,
                     ge: int = -1, match: int = 1, mismatch: int = -1,
-                    ring_rows: int | None = None):
+                    ring_rows: int | None = None,
+                    count_routes: bool = False):
     """Checks and plans one launch of csrc/poa_dp.cu (CUDA tensors in
     export_batch's layout), allocates its outputs and scratch, and returns
     (launch, (best, ystart, nops, ops), plan): launch() runs the kernel on
     them (no allocation, no host sync, no count) and raises if the launch
     fails.  `ring_rows` caps the shared-memory ring (0: every predecessor
-    row from global memory); the result does not depend on it."""
+    row from global memory); the result does not depend on it.  With
+    `count_routes`, launch.routes is an int32 [3] that each launch adds
+    its predecessor reads to, by the route the kernel took (registers,
+    ring, global).
+
+    The matrix scratch is (Ntot + G) rows of Wp int32 words (twice that
+    when some pair has n > R), Wp set by the batch's widest query: a
+    batch that puts one long query beside many long graphs pays max(m)
+    columns for every node (112 pairs of 330 nodes beside one query of
+    5,000 symbols: about 1.5 GB).  The EC legs' batches have m <= 349."""
     for t, dtype, name in ((node_off, torch.int32, "node_off"),
                            (wts, torch.int64, "wts"),
                            (topo, torch.int32, "topo"),
@@ -478,9 +455,7 @@ def poa_dp_launcher(node_off: torch.Tensor, wts: torch.Tensor,
             or n_last != ntot or q_last != mtot):
         raise ValueError("inconsistent poa_dp batch: every pair needs a "
                          "node, and the offsets run from 0 to the totals")
-    plan = poa_dp_plan(G, n_max, m_max,
-                       torch.cuda.get_device_properties(dev)
-                       .multi_processor_count, ring_rows)
+    plan = poa_dp_plan(n_max, m_max, ring_rows)
     cells = (ntot + G) * plan["Wp"]
     words = torch.empty(cells, dtype=torch.int32, device=dev)
     score = (torch.empty(cells, dtype=torch.int32, device=dev)
@@ -488,14 +463,18 @@ def poa_dp_launcher(node_off: torch.Tensor, wts: torch.Tensor,
     rank = torch.empty(ntot, dtype=torch.int32, device=dev)
     meta = torch.empty((ntot, POA_STEP_META // 4), dtype=torch.int32,
                        device=dev)
+    routes = (torch.zeros(3, dtype=torch.int32, device=dev)
+              if count_routes else None)
     lib = _lib("poa_dp")
     args = (node_off.data_ptr(), wts.data_ptr(), topo.data_ptr(),
             pred_off.data_ptr(), pred_idx.data_ptr(), term.data_ptr(),
             q_off.data_ptr(), queries.data_ptr(), rank.data_ptr(),
             meta.data_ptr(), score.data_ptr() if score is not None else None,
-            words.data_ptr(), best.data_ptr(), ystart.data_ptr(),
-            nops.data_ptr(), ops.data_ptr(), G, plan["strip"], plan["Wp"],
-            plan["ring"], plan["warps"], ge, match, mismatch, _stream(dev))
+            words.data_ptr(),
+            routes.data_ptr() if routes is not None else None,
+            best.data_ptr(), ystart.data_ptr(), nops.data_ptr(),
+            ops.data_ptr(), G, plan["strip"], plan["Wp"], plan["ring"], ge,
+            match, mismatch, _stream(dev))
 
     def launch():
         err = lib.poa_dp_launch(*args)
@@ -503,6 +482,7 @@ def poa_dp_launcher(node_off: torch.Tensor, wts: torch.Tensor,
             raise RuntimeError(f"poa_dp launch failed: CUDA error {err}")
 
     launch.keep = (words, score, rank, meta)
+    launch.routes = routes
     return launch, outs, plan
 
 

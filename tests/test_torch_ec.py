@@ -306,69 +306,54 @@ def test_semiglobal_scores_plan(B, T, Q):
     assert plan["scratch"] == (2 * (T + 1) * B if Q + 1 > 512 else 0)
 
 
-@pytest.mark.parametrize("G, n_max, m_max, ring_rows, want", [
-    # the lockstep leg's widest launch: one pair a block, a 16-row ring
-    (112, 330, 327, None, dict(strip=11, Wp=352, warps=1, ring=16,
-                               far=True)),
-    # more pairs than multiprocessors: up to four a block, the ring shrunk
-    # to the block's 227 KB
-    (600, 330, 1500, None, dict(strip=16, Wp=1536, warps=4, ring=8,
-                                far=True)),
-    (3, 10, 40, None, dict(strip=2, Wp=64, warps=1, ring=16, far=False)),
-    (3, 10, 200, None, dict(strip=8, Wp=256, warps=1, ring=16, far=False)),
-    (3, 1200, 1500, 0, dict(strip=16, Wp=1536, warps=1, ring=0, far=True)),
-    (3, 1200, 1500, 3, dict(strip=16, Wp=1536, warps=1, ring=2, far=True)),
-    (1, 1, 0, None, dict(strip=1, Wp=32, warps=1, ring=16, far=False)),
+@pytest.mark.parametrize("n_max, m_max, ring_rows, want", [
+    # the lockstep leg's widest launch: a 16-row ring
+    (330, 327, None, dict(strip=11, Wp=352, ring=16, far=True)),
+    (330, 1500, None, dict(strip=16, Wp=1536, ring=16, far=True)),
+    # rows too wide for 16 ring rows: the ring shrunk to the block's 227 KB
+    (330, 4000, None, dict(strip=16, Wp=4096, ring=8, far=True)),
+    (10, 40, None, dict(strip=2, Wp=64, ring=16, far=False)),
+    (10, 200, None, dict(strip=8, Wp=256, ring=16, far=False)),
+    (1200, 1500, 0, dict(strip=16, Wp=1536, ring=0, far=True)),
+    (1200, 1500, 1, dict(strip=16, Wp=1536, ring=0, far=True)),
+    (1200, 1500, 3, dict(strip=16, Wp=1536, ring=2, far=True)),
+    (1, 0, None, dict(strip=1, Wp=32, ring=16, far=False)),
     # rows too wide for two ring rows: no ring
-    (1, 50, 60000, None, dict(strip=16, Wp=60416, warps=1, ring=0,
-                              far=True)),
+    (50, 60000, None, dict(strip=16, Wp=60416, ring=0, far=True)),
 ])
-def test_poa_dp_plan(G, n_max, m_max, ring_rows, want):
-    plan = kernels.poa_dp_plan(G, n_max, m_max, 132, ring_rows)
+def test_poa_dp_plan(n_max, m_max, ring_rows, want):
+    plan = kernels.poa_dp_plan(n_max, m_max, ring_rows)
     assert {k: plan[k] for k in want} == want
-    assert plan["smem"] == plan["warps"] * (kernels.POA_META_BYTES +
-                                            4 * plan["ring"] * plan["Wp"])
+    assert plan["smem"] == kernels.POA_META_BYTES + \
+        4 * plan["ring"] * plan["Wp"]
     assert plan["smem"] <= kernels.SMEM_PER_BLOCK
-    assert plan["blocks"] == -(-G // plan["warps"])
 
 
 def test_poa_dp_plan_refuses_what_the_packed_word_cannot_hold():
     """pred + 1 sits above 2 bits of kind in an int32 word: n < 2^29."""
-    kernels.poa_dp_plan(1, (1 << 29) - 1, 10, 132)
+    kernels.poa_dp_plan((1 << 29) - 1, 10)
     for n in (0, 1 << 29):
         with pytest.raises(ValueError, match="2\\^29"):
-            kernels.poa_dp_plan(1, n, 10, 132)
+            kernels.poa_dp_plan(n, 10)
 
 
-def test_poa_dp_routes_count_every_predecessor():
-    """Each predecessor read goes one route: registers at topological
-    distance 1 (one register tile only), the ring below R, else global;
-    the counts match a direct walk of the graphs."""
-    (gs, qs), _ = _twin_graphs(17, 12)
-    hub, template = _grow(PoaGraph, np.random.default_rng(5),
-                          np.arange(1, 13, dtype=np.uint64), 12, 40,
-                          hub=True)
-    gs, qs = gs + [hub], qs + [template * 60]   # m + 1 > 512: no registers
-    b = poa_device.export_batch(gs, qs)
-    for ring in (0, 2, 16):
-        plan = kernels.poa_dp_plan(len(gs), max(len(g.weights) for g in gs),
-                                   max(map(len, qs)), 132, ring)
-        want = {"registers": 0, "ring": 0, "global": 0}
-        for g, q in zip(gs, qs):
-            rank = {v: i for i, v in enumerate(g.topo_order())}
-            for v, preds in enumerate(g.pred):
-                for p in preds:
-                    d = rank[v] - rank[p]
-                    if d == 1 and len(q) + 1 <= 32 * plan["strip"]:
-                        want["registers"] += 1
-                    elif d < plan["ring"]:
-                        want["ring"] += 1
-                    else:
-                        want["global"] += 1
-        got = kernels.poa_dp_routes(b["node_off"], b["topo"], b["pred_off"],
-                                    b["pred_idx"], b["q_off"], plan)
-        assert got == want
-        assert sum(got.values()) == len(b["pred_idx"])
+def _route_walk(gs, qs, plan) -> list:
+    """Predecessor reads by the route csrc/poa_dp.cu takes under `plan`,
+    from a direct walk of the graphs: registers at topological distance 1
+    (one register tile only), the ring below R, else global."""
+    want = [0, 0, 0]
+    for g, q in zip(gs, qs):
+        rank = {v: i for i, v in enumerate(g.topo_order())}
+        for v, preds in enumerate(g.pred):
+            for p in preds:
+                d = rank[v] - rank[p]
+                if d == 1 and len(q) + 1 <= 32 * plan["strip"]:
+                    want[0] += 1
+                elif d < plan["ring"]:
+                    want[1] += 1
+                else:
+                    want[2] += 1
+    return want
 
 
 @pytest.mark.cuda
@@ -396,10 +381,11 @@ def test_semiglobal_scores_kernel_matches_plain_on_the_card():
 def test_poa_dp_kernel_matches_plain_on_the_card():
     """csrc/poa_dp.cu = its plain version, every output (run with `pytest
     -m cuda` on a machine with a GPU and nvcc): the fuzz, a hub beside a
-    one-node graph, B = 1, 140 pairs (more than the multiprocessors:
-    several pairs a block) and every POA_EDGES shape, each with the
-    default ring, no ring and a two-row ring, so that every predecessor
-    route (registers, ring, global) is taken."""
+    one-node graph, B = 1, 140 pairs (more than the multiprocessors) and
+    every POA_EDGES shape, each with the default ring, no ring and a
+    two-row ring; the kernel's count of predecessor reads by route equals
+    a direct walk of the graphs, and every route (registers, ring,
+    global) is taken."""
     _cuda_or_skip()
     (gs, qs), _ = _twin_graphs(3, 24)
     rng = np.random.default_rng(5)
@@ -408,9 +394,9 @@ def test_poa_dp_kernel_matches_plain_on_the_card():
     one = PoaGraph([int(alphabet[0])], "ACGT", [0])
     batches = [(gs, qs), ([hub, one], [template * 30, [7]]),
                ([one], [[int(alphabet[0])]]),
-               ((gs * 6)[:140], (qs * 6)[:140])]   # two pairs a block
+               ((gs * 6)[:140], (qs * 6)[:140])]
     batches += [_twin_edge(case)[0] for case in POA_EDGES]
-    routes = {"registers": 0, "ring": 0, "global": 0}
+    routes = [0, 0, 0]
     for batch in batches:
         b = poa_device.export_batch(*batch)
         t = poa_device.batch_to_device(b, "cuda")
@@ -422,13 +408,12 @@ def test_poa_dp_kernel_matches_plain_on_the_card():
             assert torch.equal(a, w)
         assert kernels.poa_dp.launches == before + 1
         for ring in (None, 0, 2):
-            launch, got, plan = kernels.poa_dp_launcher(*args,
-                                                        ring_rows=ring)
+            launch, got, plan = kernels.poa_dp_launcher(
+                *args, ring_rows=ring, count_routes=True)
             launch()
             for a, w in zip(got, want):
                 assert torch.equal(a, w)
-            for k, v in kernels.poa_dp_routes(
-                    b["node_off"], b["topo"], b["pred_off"], b["pred_idx"],
-                    b["q_off"], plan).items():
-                routes[k] += v
-    assert min(routes.values()) > 0, routes
+            taken = launch.routes.tolist()
+            assert taken == _route_walk(*batch, plan)
+            routes = [x + y for x, y in zip(routes, taken)]
+    assert min(routes) > 0, routes
