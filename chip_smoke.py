@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py [--genome-mbp 20]
 
+(`--multihost-worker` is the multihost legs' own worker mode: phase 16
+starts two processes of this script with it.  `--cards 4` runs, on four
+cards, only `four_card_phase`: `--mesh 4` with a shard a card and four
+multihost processes of one card each over NCCL, against the one-device
+runs; the default run needs one card.)
+
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. the card's name and power limit (nvidia-smi), and the nvcc build of
@@ -108,7 +114,22 @@ Phases (any failure exits non-zero, and no result line is printed):
     each kernel saw and its launches; each kernel timed at the widest
     launch of its leg, against its plain version there: launch_ms (the
     bare launch, the table's ms) and wrapper_ms (checks, host sync and
-    allocation included).
+    allocation included);
+16. multi-device construction (parallel/): sharded parity on the parity
+    corpus at --mesh 4 (four shards on the one card), cuda = cpu in .gfa
+    bytes and .sequences records, the distributed join = the gathered join
+    (MDBG_SHARDED_EDGES=0), the (KC, LN, shift) node map equal to the
+    chunked raw leg's, and again at presimp 0.6 (removals counted); the
+    sharded main legs, main.fa through `assemble_sharded` at --mesh 4 and
+    --mesh 2, each with its wall, phases (feed, steps, finalize,
+    sequences, gfa), windows and unique keys a shard (the JAX run keeps at
+    most 2^20 a shard), peak device memory and nthash_select launches, the
+    (LN, KC) node multiset and edge count equal to the chunked raw leg's;
+    and the multihost legs, two processes of this script on the card
+    joined over gloo (--multihost-worker): 1,500 parity reads in two equal
+    shares, whose .gfa bytes and records equal `assemble_sharded` at
+    --mesh 2 on the interleaved order, and main.fa, whose node set, KC
+    values and edge count equal the chunked raw leg's.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -2182,6 +2203,404 @@ def ec_main(tmp: str, device_poa: bool, genome_mbp: float) -> dict:
     return res
 
 
+#: the multihost legs' processes: two on the one card, gloo by the rule
+MH_PROCS = 2
+MH_TIMEOUT_S = 400
+
+
+def node_map(prefix: str, with_meta: bool = True) -> dict:
+    """minimizer list (the record's text) -> (KC, LN, shift text) of every
+    node (with_meta=False: KC alone), from the .gfa and the .sequences
+    records.  Only the record's first two fields and its last are read:
+    the node sequences, most of the bytes, are never split."""
+    import glob
+
+    from rust_mdbg_tpu_torch.io.lz4f import decompress
+
+    meta = {}
+    with open(prefix + ".gfa") as f:
+        for line in f:
+            if line.startswith("S\t"):
+                v = line.rstrip().split("\t")
+                meta[int(v[1])] = (int(v[4][5:]), int(v[3][5:]))
+    out = {}
+    for path in sorted(glob.glob(f"{prefix}.*.sequences")):
+        with open(path, "rb") as f:
+            text = decompress(f.read())
+        for line in text.split(b"\n"):
+            if not line or line.startswith(b"#"):
+                continue
+            idx, mins, _ = line.split(b"\t", 2)
+            m = meta[int(idx)]
+            out[mins] = (m + (line.rsplit(b"\t", 1)[1],) if with_meta
+                         else m[0])
+    return out
+
+
+def sharded_parity(tmp: str, Params) -> dict:
+    """The parity corpus through `assemble_sharded` at --mesh 4: on the
+    card and on the CPU (same .gfa bytes and records), with the gathered
+    join (MDBG_SHARDED_EDGES=0, same bytes), its (KC, LN, shift) node map
+    against the chunked raw leg's (pg, still on disk), and again at presimp
+    0.6, where removals fire, on both devices."""
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.parallel.pipeline import assemble_sharded
+
+    reads = os.path.join(tmp, "parity.fa")
+    out = {}
+    for leg, presimp in (("presimp_0.01", 0.01), ("presimp_0.6", 0.6)):
+        p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2,
+                   presimp=presimp)
+        pre = {d: os.path.join(tmp, f"sh_{leg}_{d}")
+               for d in ("cuda", "cpu", "gathered")}
+        before = kernels.nthash_select.launches
+        sg = assemble_sharded(reads, p, pre["cuda"], n_devices=4,
+                              device=DEVICE)
+        launched = kernels.nthash_select.launches - before
+        sc = assemble_sharded(reads, p, pre["cpu"], n_devices=4,
+                              device="cpu")
+        os.environ["MDBG_SHARDED_EDGES"] = "0"
+        try:
+            sh = assemble_sharded(reads, p, pre["gathered"], n_devices=4,
+                                  device=DEVICE)
+        finally:
+            del os.environ["MDBG_SHARDED_EDGES"]
+        gfa = {d: open(x + ".gfa", "rb").read() for d, x in pre.items()}
+        if gfa["cuda"] != gfa["cpu"]:
+            raise SystemExit(f"sharded parity ({leg}): .gfa differs between "
+                             "cuda and cpu")
+        if gfa["cuda"] != gfa["gathered"]:
+            raise SystemExit(f"sharded parity ({leg}): the distributed and "
+                             "the gathered join wrote different .gfa bytes")
+        rec = read_records(pre["cuda"])
+        if rec != read_records(pre["cpu"]) \
+                or rec != read_records(pre["gathered"]):
+            raise SystemExit(f"sharded parity ({leg}): .sequences differ")
+        if not sg.get("distributed_edges") or "distributed_edges" in sh:
+            raise SystemExit(f"sharded parity ({leg}): wrong join made the "
+                             "edges")
+        if launched <= 0 or sg["nb_nodes"] <= 0 or sg["nb_edges"] <= 0:
+            raise SystemExit(f"sharded parity ({leg}): launches {launched}, "
+                             f"graph {sg}")
+        if presimp > 0.5 and not sg["presimp_removed"]:
+            raise SystemExit("sharded parity: presimp 0.6 removed nothing")
+        out[leg] = dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
+                        presimp_removed=sg["presimp_removed"],
+                        cpu_presimp_removed=sc["presimp_removed"],
+                        shard_windows=sg["shard_windows"],
+                        shard_unique_keys=sg["shard_unique_keys"],
+                        phases=sg["phases"], kernel_launches=launched)
+    if node_map(os.path.join(tmp, "sh_presimp_0.01_cuda")) \
+            != node_map(os.path.join(tmp, "pg")):
+        raise SystemExit("sharded parity: the (KC, LN, shift) node map "
+                         "differs from the chunked raw leg's")
+    out["node_map_equals_chunked"] = True
+    return out
+
+
+def sharded_main(tmp: str, Params, syn: dict, n: int, chunked: dict):
+    """main.fa (raw reads, minabund 2) through `assemble_sharded` on the
+    card at --mesh n: wall, phases, windows and unique keys a shard (the
+    JAX run keeps at most 2^20 of them a shard), peak device memory and
+    nthash_select's launches; the (LN, KC) node multiset and the edge
+    count must equal the chunked raw leg's."""
+    import torch
+
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.parallel.pipeline import assemble_sharded
+
+    reads = os.path.join(tmp, "main.fa")
+    prefix = os.path.join(tmp, f"sharded{n}")
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.nthash_select.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = assemble_sharded(reads, p, prefix, n_devices=n, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.nthash_select.launches
+    if launches <= 0:
+        raise SystemExit(f"sharded main (mesh {n}): nthash_select never "
+                         "launched")
+    sig = gfa_signature(prefix)
+    if sig != gfa_signature(os.path.join(tmp, "main")):
+        raise SystemExit(
+            f"sharded main (mesh {n}): {len(sig[0])} nodes / {sig[1]} edges "
+            f"against the chunked leg's {chunked['nodes']} / "
+            f"{chunked['edges']}, or another (LN, KC) multiset")
+    keys = st["shard_unique_keys"]
+    return dict(
+        mesh=n, read_gbp=syn["total_bases"] / 1e9, reads=st["nb_reads"],
+        nodes=st["nb_nodes"], edges=st["nb_edges"],
+        windows=sum(st["shard_windows"]), wall_s=wall,
+        read_gbp_per_s=syn["total_bases"] / 1e9 / wall, phases=st["phases"],
+        shard_windows=st["shard_windows"], shard_unique_keys=keys,
+        shards_over_jax_node_cap=sum(k > (1 << 20) for k in keys),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        nthash_select_launches=launches, same_graph_as_chunked=True)
+
+
+def multihost_worker(out_json: str, reads: str, prefix: str,
+                     batch_reads: int, device: str) -> int:
+    """One process of a multihost leg (MDBG_COORD, MDBG_NPROCS and
+    MDBG_PROC_ID name the group) on `device` (the parent's DEVICE): its
+    stats, wall, peak device memory and nthash_select launches into
+    out_json."""
+    import torch
+
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.parallel.multihost import (assemble_multihost,
+                                                        init_distributed)
+    from rust_mdbg_tpu_torch.params import Params
+
+    init_distributed()
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2,
+               batch_reads=batch_reads)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.nthash_select.launches = 0
+    t0 = time.perf_counter()
+    st = assemble_multihost(reads, p, prefix, device=device)
+    torch.cuda.synchronize()
+    st.update(wall_s=time.perf_counter() - t0,
+              peak_mem_bytes=torch.cuda.max_memory_allocated(),
+              nthash_select_launches=kernels.nthash_select.launches)
+    with open(out_json, "w") as f:
+        json.dump(st, f)
+    return 0
+
+
+def run_multihost(tmp: str, reads: str, prefix: str, batch_reads: int,
+                  nproc: int = MH_PROCS, card_each: bool = False):
+    """nproc processes of this script in worker mode joined over
+    127.0.0.1 (card_each: process p sees card p alone); each is killed if
+    it outlives MH_TIMEOUT_S.  Returns their stats and the wall time of the
+    whole group."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for pid in range(nproc):
+        outs.append(os.path.join(tmp, f"{os.path.basename(prefix)}.{pid}"
+                                 ".json"))
+        env = dict(os.environ, MDBG_COORD=f"127.0.0.1:{port}",
+                   MDBG_NPROCS=str(nproc), MDBG_PROC_ID=str(pid))
+        if card_each:
+            env["CUDA_VISIBLE_DEVICES"] = str(pid)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+             outs[-1], reads, prefix, str(batch_reads), DEVICE], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise SystemExit(f"multihost worker failed ({p.returncode}):\n"
+                             f"{log[-4000:]}")
+    wall = time.perf_counter() - t0
+    return [json.load(open(o)) for o in outs], wall
+
+
+def write_even_corpus(src: str, path: str, n_reads: int) -> str:
+    """The first n_reads records of src (reads of one length) renamed to
+    names of one width: every record has the same bytes, so p byte-range
+    shares hold n_reads / p reads each."""
+    from rust_mdbg_tpu_torch.io.fastx import read_records
+
+    with open(path, "wb") as f:
+        for i, (_name, seq) in enumerate(read_records(src)):
+            if i == n_reads:
+                break
+            f.write(b">m%07d\n" % i + seq + b"\n")
+    return path
+
+
+def write_interleaved(reads: str, path: str, B_host: int,
+                      nproc: int = MH_PROCS) -> str:
+    """The multihost global row order as one FASTA: round by round, each
+    of nproc processes' block of B_host reads of its byte-range share."""
+    from rust_mdbg_tpu_torch.parallel.multihost import fasta_range_records
+
+    size = os.path.getsize(reads)
+    step = -(-size // nproc)
+    shares = [list(fasta_range_records(reads, p * step,
+                                       min(size, (p + 1) * step)))
+              for p in range(nproc)]
+    with open(path, "wb") as f:
+        for r in range(0, max(len(s) for s in shares), B_host):
+            for share in shares:
+                for name, seq in share[r: r + B_host]:
+                    f.write(b">" + name.encode() + b"\n" + seq + b"\n")
+    return path
+
+
+def _mh_summary(stats: list, wall: float) -> dict:
+    return dict(
+        processes=len(stats), backend=stats[0]["backend"],
+        backend_rule=stats[0]["backend_rule"], rounds=stats[0]["rounds"],
+        nodes=stats[0]["nb_nodes"], edges=stats[0]["nb_edges"],
+        reads=sum(s["nb_reads"] for s in stats), wall_s=wall,
+        process_wall_s=[s["wall_s"] for s in stats],
+        phases=[s["phases"] for s in stats],
+        shard_windows=[w for s in stats for w in s["shard_windows"]],
+        shard_unique_keys=[w for s in stats for w in s["shard_unique_keys"]],
+        peak_mem_bytes=[s["peak_mem_bytes"] for s in stats],
+        nthash_select_launches=sum(s["nthash_select_launches"]
+                                   for s in stats))
+
+
+def multihost_parity(tmp: str, Params) -> dict:
+    """Two processes on the card over gloo on 1,500 parity reads with
+    names of one width (750 a share, 3 rounds of B_host = 250): the .gfa
+    bytes and records of `assemble_sharded` at --mesh 2 on the interleaved
+    order."""
+    from rust_mdbg_tpu_torch.parallel.pipeline import assemble_sharded
+
+    batch, B_host = 500, 250
+    reads = write_even_corpus(os.path.join(tmp, "parity.fa"),
+                              os.path.join(tmp, "mh_parity.fa"), 1500)
+    prefix = os.path.join(tmp, "mhp")
+    stats, wall = run_multihost(tmp, reads, prefix, batch)
+    inter = write_interleaved(reads, os.path.join(tmp, "mh_inter.fa"),
+                              B_host)
+    ref = os.path.join(tmp, "mhp_mesh2")
+    rst = assemble_sharded(inter, Params(k=21, l=14, density=0.003,
+                                         min_kmer_abundance=2,
+                                         batch_reads=batch),
+                           ref, n_devices=2, device=DEVICE)
+    if stats[0]["backend"] != "gloo" or stats[0]["rounds"] != 3:
+        raise SystemExit(f"multihost parity: backend {stats[0]['backend']}"
+                         f", {stats[0]['rounds']} rounds")
+    if open(prefix + ".gfa", "rb").read() != open(ref + ".gfa", "rb").read():
+        raise SystemExit("multihost parity: .gfa differs from --mesh 2 on "
+                         "the interleaved order")
+    if read_records(prefix) != read_records(ref):
+        raise SystemExit("multihost parity: .sequences records differ from "
+                         "--mesh 2 on the interleaved order")
+    out = _mh_summary(stats, wall)
+    if out["nthash_select_launches"] <= 0 or rst["nb_nodes"] <= 0:
+        raise SystemExit(f"multihost parity: no launch or empty graph {out}")
+    out["gfa_equals_mesh2_interleaved"] = True
+    return out
+
+
+def multihost_main(tmp: str, chunked: dict) -> dict:
+    """Two processes on the card over gloo on main.fa (raw reads, minabund
+    2): the node set, each node's KC and the edge count equal the chunked
+    raw leg's.  A repeat node may record another occurrence (LN, shift):
+    the global row order interleaves the two shares."""
+    prefix = os.path.join(tmp, "mhm")
+    stats, wall = run_multihost(tmp, os.path.join(tmp, "main.fa"), prefix,
+                                512)
+    out = _mh_summary(stats, wall)
+    if out["nthash_select_launches"] <= 0:
+        raise SystemExit("multihost main: nthash_select never launched")
+    if out["edges"] != chunked["edges"] or out["nodes"] != chunked["nodes"]:
+        raise SystemExit(f"multihost main: {out['nodes']} nodes / "
+                         f"{out['edges']} edges against the chunked leg's "
+                         f"{chunked['nodes']} / {chunked['edges']}")
+    t0 = time.perf_counter()
+    if node_map(prefix, with_meta=False) \
+            != node_map(os.path.join(tmp, "main"), with_meta=False):
+        raise SystemExit("multihost main: node set or KC differs from the "
+                         "chunked leg's")
+    out["node_compare_s"] = time.perf_counter() - t0
+    out["same_nodes_kc_edges_as_chunked"] = True
+    return out
+
+
+def four_card_phase(tmp: str, Params) -> dict:
+    """`--cards 4`: what one card cannot show.  `--mesh 4` with a shard a
+    card (rows cross between cards) and four `--multihost` processes of
+    one card each (the backend rule picks NCCL): on 1,024 parity reads in
+    four equal shares, the .gfa bytes and records of `--mesh 4` on the CPU
+    and on the interleaved order; on main.fa, the chunked raw leg's graph
+    (node multiset and edges; for the processes node set, KC, edges)."""
+    import torch
+
+    from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
+    from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.parallel.pipeline import assemble_sharded
+
+    if torch.cuda.device_count() < 4:
+        raise SystemExit(f"--cards 4 needs four cards, found "
+                         f"{torch.cuda.device_count()}")
+    par = os.path.join(tmp, "parity.fa")
+    write_synthetic_reads(par, genome_mbp=0.5, coverage=30, read_len=10_000,
+                          error_rate=0.003, seed=3)
+    even = write_even_corpus(par, os.path.join(tmp, "even4.fa"), 1024)
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
+    out = {}
+    pre = {d: os.path.join(tmp, f"four_{d}") for d in ("cards", "cpu",
+                                                        "inter")}
+    t0 = time.perf_counter()
+    st = assemble_sharded(even, p, pre["cards"], n_devices=4, device=DEVICE)
+    out["parity_mesh4_s"] = time.perf_counter() - t0
+    assemble_sharded(even, p, pre["cpu"], n_devices=4, device="cpu")
+    stats, wall = run_multihost(tmp, even, os.path.join(tmp, "four_mh"),
+                                512, nproc=4, card_each=True)
+    assemble_sharded(write_interleaved(even, os.path.join(tmp, "i4.fa"),
+                                       128, nproc=4),
+                     p, pre["inter"], n_devices=4, device="cpu")
+    gfa = {d: open(x + ".gfa", "rb").read() for d, x in pre.items()}
+    mh = os.path.join(tmp, "four_mh")
+    if gfa["cards"] != gfa["cpu"] or read_records(pre["cards"]) \
+            != read_records(pre["cpu"]):
+        raise SystemExit("four cards: --mesh 4 over the cards differs from "
+                         "the CPU")
+    if open(mh + ".gfa", "rb").read() != gfa["inter"] \
+            or read_records(mh) != read_records(pre["inter"]):
+        raise SystemExit("four cards: four processes differ from --mesh 4 "
+                         "on the interleaved order")
+    if stats[0]["backend"] != "nccl":
+        raise SystemExit(f"four cards: backend {stats[0]['backend']}")
+    out.update(parity_nodes=st["nb_nodes"], parity_edges=st["nb_edges"],
+               parity_devices=sorted({s["device"] for s in stats}),
+               parity_multihost=_mh_summary(stats, wall))
+    syn = write_main_corpus(tmp, 20)
+    main = os.path.join(tmp, "main.fa")
+    chunked = assemble_device_chunked(main, p, os.path.join(tmp, "main"),
+                                      device=DEVICE)
+    torch.cuda.synchronize()
+    kernels.nthash_select.launches = 0
+    t0 = time.perf_counter()
+    st = assemble_sharded(main, p, os.path.join(tmp, "four_sh"),
+                          n_devices=4, device=DEVICE)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    if gfa_signature(os.path.join(tmp, "four_sh")) \
+            != gfa_signature(os.path.join(tmp, "main")):
+        raise SystemExit("four cards: --mesh 4 over the cards changed the "
+                         "main graph")
+    out["main_mesh4"] = dict(
+        wall_s=wall4, phases=st["phases"],
+        shard_unique_keys=st["shard_unique_keys"],
+        nthash_select_launches=kernels.nthash_select.launches,
+        read_gbp=syn["total_bases"] / 1e9, same_graph_as_chunked=True)
+    stats, wall = run_multihost(tmp, main, os.path.join(tmp, "four_mhm"),
+                                512, nproc=4, card_each=True)
+    m = _mh_summary(stats, wall)
+    if m["edges"] != chunked["nb_edges"] \
+            or node_map(os.path.join(tmp, "four_mhm"), with_meta=False) \
+            != node_map(os.path.join(tmp, "main"), with_meta=False):
+        raise SystemExit("four cards: four processes changed the main "
+                         "graph's nodes, KC or edges")
+    m["same_nodes_kc_edges_as_chunked"] = True
+    out["main_multihost"] = m
+    return out
+
+
 def _short(kernel: str) -> str:
     for junk in ("void ", "at::native::", "(anonymous namespace)::",
                  "at::cuda::detail::"):
@@ -2194,7 +2613,16 @@ def main() -> int:
     ap.add_argument("--genome-mbp", type=float, default=20,
                     help="genome size of the main-path leg (cut only if "
                          "the time limit forces it)")
+    ap.add_argument("--cards", type=int, default=1, choices=(1, 4),
+                    help="4: only the four-card phase (needs four cards)")
+    ap.add_argument("--multihost-worker", nargs=5, default=None,
+                    metavar=("OUT_JSON", "READS", "PREFIX", "BATCH_READS",
+                             "DEVICE"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.multihost_worker:
+        out_json, reads, prefix, batch, device = args.multihost_worker
+        return multihost_worker(out_json, reads, prefix, int(batch), device)
 
     import torch
 
@@ -2217,6 +2645,20 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, (sec, log) in logs.items():
         print(f"# nvcc {name} ({sec:.3f} s):\n{log.strip()}", flush=True)
+    if args.cards == 4:
+        tmp = os.path.join(HERE, ".smoke_tmp")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        try:
+            four = four_card_phase(tmp, Params)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"four cards: {json.dumps(four)}", flush=True)
+        print(nvidia_smi(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     hash_bound = Params(k=21, l=14, density=0.003).hash_bound
     rows = [check_nthash_select(torch, np, hash_bound),
             check_syncmer_select(torch, np)]
@@ -2315,6 +2757,22 @@ def main() -> int:
             if r["mismatches"]:
                 raise SystemExit(f"EC kernel timing: {r['mismatches']} "
                                  "mismatches at the leg's own shapes")
+
+        t0 = time.perf_counter()
+        shp = sharded_parity(tmp, Params)
+        shp["seconds"] = time.perf_counter() - t0
+        print(f"sharded parity: {json.dumps(shp)}", flush=True)
+        sharded = {}
+        for n in (4, 2):
+            sharded[n] = sharded_main(tmp, Params, syn, n, mp)
+            print(f"sharded main (mesh {n}): {json.dumps(sharded[n])}",
+                  flush=True)
+        t0 = time.perf_counter()
+        mhp = multihost_parity(tmp, Params)
+        mhp["seconds"] = time.perf_counter() - t0
+        print(f"multihost parity: {json.dumps(mhp)}", flush=True)
+        mhm = multihost_main(tmp, mp)
+        print(f"multihost main: {json.dumps(mhm)}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2326,7 +2784,10 @@ def main() -> int:
            for leg, w in scheme.items()},
         multik=tools["multik"]["nthash_select_launches"],
         **{f"ec_main_{leg}": w["launches"]["nthash_select"]
-           for leg, w in ec_legs.items()})
+           for leg, w in ec_legs.items()},
+        **{f"sharded_mesh{n}": w["nthash_select_launches"]
+           for n, w in sharded.items()},
+        multihost_main=mhm["nthash_select_launches"])
     rows[1]["launches_by_leg"] = {
         f"scheme_{leg}": w["syncmer_select_launches"]
         for leg, w in scheme.items()}

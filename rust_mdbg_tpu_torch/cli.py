@@ -5,7 +5,8 @@
         [--syncmers [-s S]] [--lmer-counts F] [--uhs F] [--lcp F]
         [--reference] [--read-stats F] [--engine device|host]
         [--error-correct [--ec-device-poa] [--ec-procs N] [--ec-chunk N]]
-        [--restart-from-postcor] [--device cuda|cpu]
+        [--restart-from-postcor] [--mesh N | --multihost]
+        [--device cuda|cpu]
     python -m rust_mdbg_tpu_torch TOOL ...
 
 The parser takes every flag of `python -m rust_mdbg_tpu` and maps it onto
@@ -17,7 +18,11 @@ JAX package does: density and syncmer runs to the chunked driver
 (--minabund up to 16) or the whole-run device path (above it), everything
 else, error correction included, to the streaming engine.
 --restart-from-postcor rebuilds the graph from prefix.postcor.ec_data
-(models/correct.assemble_from_postcor, host only).
+(models/correct.assemble_from_postcor, host only).  --mesh N runs the
+sharded pipeline over N shards (parallel/pipeline.assemble_sharded; on one
+card, N shards on it), and --multihost the same pipeline over the
+processes that MDBG_COORD, MDBG_NPROCS and MDBG_PROC_ID name
+(parallel/multihost.py), as the JAX package routes them.
 
 TOOL is one of the JAX package's subcommands (tools/): to-basespace,
 gfa-asm, magic-simplify, simplify-meta, multik (which assembles on the card
@@ -25,9 +30,9 @@ unless given --device cpu), gfa2fasta, break-loops, gfa-complete,
 hpc-compress, gfa-strip, extreme-simplify, synth-reads, ec-scale (on the
 card unless given --device cpu).
 
---mesh, --multihost and the subcommand quality-n50 select paths this port
-does not run yet: they fail with a "not ported yet" error naming
-ROADMAP.md instead of running something else.
+The subcommand quality-n50 selects a path this port does not run yet: it
+fails with a "not ported yet" error naming ROADMAP.md instead of running
+something else.
 """
 
 from __future__ import annotations
@@ -38,9 +43,6 @@ import sys
 import time
 
 from .params import Params, autodetect_k_l_d, default_prefix
-
-#: flags of the JAX package's CLI whose paths are later slices
-_NOT_PORTED = {"mesh": "--mesh", "multihost": "--multihost"}
 
 #: subcommands of the JAX package's CLI, run by tools.dispatch
 _TOOLS = (
@@ -65,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Minimizer-space de Bruijn graph (mdBG) assembler, "
                     "PyTorch/CUDA port.",
         epilog="Subcommands: " + ", ".join(_TOOLS) + ".  Not ported yet: "
-               + ", ".join(_TOOLS_NOT_PORTED) + ", --mesh, --multihost.")
+               + ", ".join(_TOOLS_NOT_PORTED) + ".")
     p.add_argument("reads", help="input FASTA/FASTQ (.gz/.lz4 ok)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("-p", "--prefix", default=None)
@@ -116,20 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ec-chunk", type=int, default=32)
     p.add_argument("--error-correct", action="store_true")
     p.add_argument("--restart-from-postcor", action="store_true")
-    for dest in _NOT_PORTED:
-        flag = "--" + dest.replace("_", "-")
-        if dest == "mesh":
-            p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shards of the sharded pipeline (0: off)")
+    p.add_argument("--multihost", action="store_true",
+                   help="the sharded pipeline over the processes of "
+                        "MDBG_COORD / MDBG_NPROCS / MDBG_PROC_ID")
     return p
 
 
 def params_from_args(args) -> tuple[Params, str]:
-    for dest, label in _NOT_PORTED.items():
-        if getattr(args, dest):
-            raise SystemExit(
-                f"error: {label} is not ported yet (see ROADMAP.md)")
     k, l, density = 10, 12, 0.10
     if args.k is None and args.l is None and args.density is None:
         from .io.fastx import read_first_n_reads
@@ -209,6 +206,17 @@ def main(argv=None):
         from .models.correct import assemble_from_postcor
 
         stats = assemble_from_postcor(params, prefix)
+    elif args.multihost:
+        from .parallel.multihost import assemble_multihost, init_distributed
+
+        init_distributed()
+        stats = assemble_multihost(args.reads, params, prefix,
+                                   device=args.device)
+    elif args.mesh:
+        from .parallel.pipeline import assemble_sharded
+
+        stats = assemble_sharded(args.reads, params, prefix,
+                                 n_devices=args.mesh, device=args.device)
     else:
         stats = assemble(args.reads, params, prefix,
                          read_stats_path=args.read_stats, device=args.device)

@@ -138,6 +138,10 @@ def _check_cuda(t: torch.Tensor, dtype, name: str):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 # --- nthash_select ----------------------------------------------------------
 
 def nthash_select_plain(codes: torch.Tensor, l: int, hash_bound: int,
@@ -170,10 +174,12 @@ def nthash_select(codes: torch.Tensor, l: int, hash_bound: int,
     canon = torch.empty((B, L), dtype=torch.int64, device=codes.device)
     sel = torch.empty((B, L), dtype=torch.bool, device=codes.device)
     lib = _lib("nthash_select")
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = lib.nthash_select_launch(
-        codes.data_ptr(), lengths.data_ptr(), canon.data_ptr(),
-        sel.data_ptr(), B, L, l, hash_bound & ((1 << 64) - 1), stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(codes.device):
+        err = lib.nthash_select_launch(
+            codes.data_ptr(), lengths.data_ptr(), canon.data_ptr(),
+            sel.data_ptr(), B, L, l, hash_bound & ((1 << 64) - 1),
+            _stream(codes.device))
     if err != 0:
         raise RuntimeError(f"nthash_select launch failed: CUDA error {err}")
     nthash_select.launches += 1
@@ -249,10 +255,11 @@ def syncmer_select(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
     hl = torch.empty((B, L), dtype=torch.int64, device=hpc_codes.device)
     sel = torch.empty((B, L), dtype=torch.bool, device=hpc_codes.device)
     lib = _lib("syncmer_select")
-    stream = torch.cuda.current_stream(hpc_codes.device).cuda_stream
-    err = lib.syncmer_select_launch(
-        hpc_codes.data_ptr(), hpc_len.data_ptr(), hl.data_ptr(),
-        sel.data_ptr(), B, L, l, s, bound & ((1 << 64) - 1), stream)
+    with torch.cuda.device(hpc_codes.device):
+        err = lib.syncmer_select_launch(
+            hpc_codes.data_ptr(), hpc_len.data_ptr(), hl.data_ptr(),
+            sel.data_ptr(), B, L, l, s, bound & ((1 << 64) - 1),
+            _stream(hpc_codes.device))
     if err != 0:
         raise RuntimeError(f"syncmer_select launch failed: CUDA error {err}")
     syncmer_select.launches += 1
@@ -324,10 +331,6 @@ def poa_dp_plan(n_max: int, m_max: int,
                 smem=POA_META_BYTES + 4 * R * Wp)
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 # --- semiglobal_scores --------------------------------------------------------
 
 def semiglobal_scores_launcher(template: torch.Tensor, queries: torch.Tensor,
@@ -365,7 +368,8 @@ def semiglobal_scores_launcher(template: torch.Tensor, queries: torch.Tensor,
             _stream(queries.device))
 
     def launch():
-        err = lib.semiglobal_scores_launch(*args)
+        with torch.cuda.device(queries.device):
+            err = lib.semiglobal_scores_launch(*args)
         if err != 0:
             raise RuntimeError(f"semiglobal_scores launch failed: CUDA "
                                f"error {err}")
@@ -477,7 +481,8 @@ def poa_dp_launcher(node_off: torch.Tensor, wts: torch.Tensor,
             match, mismatch, _stream(dev))
 
     def launch():
-        err = lib.poa_dp_launch(*args)
+        with torch.cuda.device(dev):
+            err = lib.poa_dp_launch(*args)
         if err != 0:
             raise RuntimeError(f"poa_dp launch failed: CUDA error {err}")
 

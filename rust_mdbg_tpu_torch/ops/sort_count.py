@@ -309,6 +309,50 @@ def finalize_compact(b_lo, b_hi, b_occ, b_mh, b_mp, b_mpe=None, *, k: int,
     return out
 
 
+def finalize_windows(b_lo, b_hi, b_meta, b_vecs=None, *, minab: int) -> dict:
+    """Sort and segment-reduce windows that carry explicit meta and vec
+    rows: the counterpart of the JAX package's `_finalize`, the reduction
+    of the sharded pipeline (parallel/pipeline.py), where windows are
+    routed across shards and no occ -> (read, window) mapping holds.
+
+    A row is a window where meta[:, 1] has bit 31 set; its occurrence
+    index is its row.  Per unique key: the count, the first occurrence,
+    and the meta and vec rows of its minab-th occurrence; the keys sighted
+    at least minab times are the nodes, in first-occurrence order.
+
+    The JAX function keeps only the first node_cap unique keys in key
+    order and counts the rest as node_overflow; here every output is sized
+    from the data, so no key is dropped.
+
+    Returns tensors on the buffers' device, n_pass rows each: key_lo,
+    key_hi, count, first_occ, meta, vec (with b_vecs); and n_pass,
+    n_unique (ints).
+    """
+    rows = torch.nonzero(u64.shr(b_meta[:, 1], 31) & 1).flatten()
+    lo, hi = b_lo[rows], b_hi[rows]
+    # rows are unique and ascending, so as the last key they order each
+    # key's sightings by occurrence
+    perm = u64.lexsort([lo, hi, rows], [True, True, False])
+    slo, shi, socc = lo[perm], hi[perm], rows[perm]
+    del lo, hi, rows, perm
+    n_valid = slo.shape[0]
+    head = torch.ones(n_valid, dtype=torch.bool, device=slo.device)
+    head[1:] = (slo[1:] != slo[:-1]) | (shi[1:] != shi[:-1])
+    head_pos = torch.nonzero(head).flatten()
+    run = torch.diff(head_pos, append=head_pos.new_tensor([n_valid]))
+    passing = run >= minab
+    hp = head_pos[passing]
+    first_occ, order = torch.sort(socc[hp])
+    hp = hp[order]
+    cross_occ = socc[hp + (minab - 1)]
+    out = dict(key_lo=slo[hp], key_hi=shi[hp], count=run[passing][order],
+               first_occ=first_occ, meta=b_meta[cross_occ],
+               n_pass=int(hp.shape[0]), n_unique=int(head_pos.shape[0]))
+    if b_vecs is not None:
+        out["vec"] = b_vecs[cross_occ]
+    return out
+
+
 def gather_window_meta(b_mh, b_mp, occs, *, k: int, M: int, b_mpe=None,
                        with_record_pos: bool = False):
     """Reconstruct (canonical vec, meta) for chunk-local window occurrences
@@ -405,6 +449,15 @@ def buffers_from_numpy(bufs, device) -> tuple:
            i_plane(occ, np.int64), u64.from_numpy(mh, device),
            i_plane(mp, np.int32))
     return out + tuple(tail(b) for b in bufs[5:])
+
+
+def window_buffers_from_numpy(lo, hi, meta, vecs, device) -> tuple:
+    """One shard of the JAX sharded pipeline's buffers as numpy (u64 lo,
+    hi [N], u32 meta [N, mc], u64 vecs [N, k]) -> the int64 tensors
+    finalize_windows reduces, on `device`."""
+    m = torch.from_numpy(np.asarray(meta, dtype=np.uint32).astype(np.int64))
+    return (u64.from_numpy(lo, device), u64.from_numpy(hi, device),
+            m.to(device), u64.from_numpy(vecs, device))
 
 
 def buffers_to_numpy(bufs) -> tuple:

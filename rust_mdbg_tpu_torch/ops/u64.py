@@ -93,3 +93,32 @@ def from_numpy(a: np.ndarray, device) -> torch.Tensor:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int64 tensor of u64 bit patterns -> numpy uint64."""
     return t.detach().cpu().numpy().astype(np.int64, copy=False).view(np.uint64)
+
+
+def mod_small(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Unsigned remainder of u64 bit patterns by a constant 0 < n < 2^31.
+
+    int64 `%` reads a pattern at or above 2^63 as negative, which gives the
+    wrong class whenever n is not a power of two.  The halves hi * 2^32 +
+    lo are each below 2^32, so (hi % n) * (2^32 % n) + lo % n stays far
+    below 2^63."""
+    if not 0 < n < (1 << 31):
+        raise ValueError(f"modulus {n} outside (0, 2^31)")
+    hi = shr(x, 32)
+    lo = x & 0xFFFFFFFF
+    return ((hi % n) * ((1 << 32) % n) + lo % n) % n
+
+
+_M1 = s64(0x5555555555555555)
+_M2 = s64(0x3333333333333333)
+_M4 = s64(0x0F0F0F0F0F0F0F0F)
+_H01 = s64(0x0101010101010101)
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each u64 bit pattern (bit-sliced: pairs, nibbles, bytes,
+    then one multiply sums the bytes into the top byte)."""
+    x = x - (shr(x, 1) & _M1)
+    x = (x & _M2) + (shr(x, 2) & _M2)
+    x = (x + shr(x, 4)) & _M4
+    return shr(x * _H01, 56)

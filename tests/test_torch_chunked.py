@@ -224,14 +224,23 @@ def test_cli_skiphpc(tmp_path, hpc_reads):
                                   ["--multihost"],
                                   ["--restart-from-postcor"]])
 def test_cli_rejects_unported_paths(tmp_path, reads, flag):
-    """--mesh and --multihost are still refused.  --error-correct runs and
-    writes the JAX CLI's bytes (.ec_data, .postcor.ec_data, .poa.ec_data,
-    .gfa, .sequences); --restart-from-postcor then rebuilds the same graph
-    from the corrected reads alone, as the JAX CLI does."""
+    """No path of these flags is refused any more.  --mesh 4 writes the
+    JAX CLI's --mesh 4 .gfa bytes and records; --multihost with no process
+    group runs this process alone, one shard on the CPU, which is the JAX
+    CLI's --mesh 1.  --error-correct runs and writes the JAX CLI's bytes
+    (.ec_data, .postcor.ec_data, .poa.ec_data, .gfa, .sequences);
+    --restart-from-postcor then rebuilds the same graph from the corrected
+    reads alone, as the JAX CLI does."""
     if flag[0] in ("--mesh", "--multihost"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli_main([reads, "-k", "7", "--device", "cpu",
-                      "--prefix", str(tmp_path / "x")] + flag)
+        base = [reads, "-k", "7", "-l", "12", "-d", "0.01"]
+        pj, pt = str(tmp_path / "jax"), str(tmp_path / "port")
+        jflag = ["--mesh", "1"] if flag == ["--multihost"] else flag
+        assert jax_cli_main(base + jflag + ["--prefix", pj]) == 0
+        assert cli_main(base + flag + ["--device", "cpu",
+                                       "--prefix", pt]) == 0
+        assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa",
+                                                      "rb").read()
+        assert _records(pj) == _records(pt) and _records(pt)
         return
     base = [reads, "-k", "7", "-l", "12", "-d", "0.01", "--error-correct"]
     pj, pt = str(tmp_path / "jax"), str(tmp_path / "port")
