@@ -129,7 +129,11 @@ Phases (any failure exits non-zero, and no result line is printed):
     joined over gloo (--multihost-worker): 1,500 parity reads in two equal
     shares, whose .gfa bytes and records equal `assemble_sharded` at
     --mesh 2 on the interleaved order, and main.fa, whose node set, KC
-    values and edge count equal the chunked raw leg's.
+    values and edge count equal the chunked raw leg's; then nthash_select
+    against its plain version at every [rows, width] shape these legs'
+    shard steps ran at (their `staged_shapes`).  With `--cards 4` the
+    kernel is held against its plain version at the four-card legs'
+    shapes on each of the four cards.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -284,6 +288,25 @@ def check_nthash_select(torch, np, hash_bound: int) -> dict:
         gbytes_per_s=nbytes / ms / 1e6, fill_ms=fill_ms,
         fill_gbytes_per_s=fill_bytes / fill_ms / 1e6,
         shape=[B, L], l=l, selected=n_sel, cases=cases)
+
+
+def check_nthash_at(torch, np, hash_bound: int, shapes, devices,
+                    l: int = 14) -> dict:
+    """The kernel vs its plain version at the [rows, width] shapes a leg's
+    shard steps ran at (the legs' `staged_shapes`), on tensors on each of
+    `devices`: mismatches by case."""
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    cases = {}
+    for B, L in shapes:
+        codes, lengths = _nthash_batch(np, 200 + B, B, L, l)
+        for dev in devices:
+            c = torch.from_numpy(codes).to(dev)
+            n = torch.from_numpy(lengths).to(dev)
+            want = kernels.nthash_select_plain(c, l, hash_bound, n)
+            cases[f"[{B}, {L}] l={l} on {dev}"] = _mismatches(
+                torch, kernels.nthash_select(c, l, hash_bound, n), want)
+    return cases
 
 
 def _syncmer_batch(np, seed: int, B: int, L: int, l: int,
@@ -2289,6 +2312,7 @@ def sharded_parity(tmp: str, Params) -> dict:
                         cpu_presimp_removed=sc["presimp_removed"],
                         shard_windows=sg["shard_windows"],
                         shard_unique_keys=sg["shard_unique_keys"],
+                        staged_shapes=sg["staged_shapes"],
                         phases=sg["phases"], kernel_launches=launched)
     if node_map(os.path.join(tmp, "sh_presimp_0.01_cuda")) \
             != node_map(os.path.join(tmp, "pg")):
@@ -2338,6 +2362,7 @@ def sharded_main(tmp: str, Params, syn: dict, n: int, chunked: dict):
         shard_windows=st["shard_windows"], shard_unique_keys=keys,
         shards_over_jax_node_cap=sum(k > (1 << 20) for k in keys),
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        staged_shapes=st["staged_shapes"],
         nthash_select_launches=launches, same_graph_as_chunked=True)
 
 
@@ -2455,6 +2480,8 @@ def _mh_summary(stats: list, wall: float) -> dict:
         shard_windows=[w for s in stats for w in s["shard_windows"]],
         shard_unique_keys=[w for s in stats for w in s["shard_unique_keys"]],
         peak_mem_bytes=[s["peak_mem_bytes"] for s in stats],
+        staged_shapes=sorted({tuple(x) for s in stats
+                              for x in s["staged_shapes"]}),
         nthash_select_launches=sum(s["nthash_select_launches"]
                                    for s in stats))
 
@@ -2519,7 +2546,7 @@ def multihost_main(tmp: str, chunked: dict) -> dict:
     return out
 
 
-def four_card_phase(tmp: str, Params) -> dict:
+def four_card_phase(tmp: str, Params, np) -> dict:
     """`--cards 4`: what one card cannot show.  `--mesh 4` with a shard a
     card (rows cross between cards) and four `--multihost` processes of
     one card each (the backend rule picks NCCL): on 1,024 parity reads in
@@ -2547,6 +2574,7 @@ def four_card_phase(tmp: str, Params) -> dict:
     t0 = time.perf_counter()
     st = assemble_sharded(even, p, pre["cards"], n_devices=4, device=DEVICE)
     out["parity_mesh4_s"] = time.perf_counter() - t0
+    shapes = {tuple(x) for x in st["staged_shapes"]}
     assemble_sharded(even, p, pre["cpu"], n_devices=4, device="cpu")
     stats, wall = run_multihost(tmp, even, os.path.join(tmp, "four_mh"),
                                 512, nproc=4, card_each=True)
@@ -2586,8 +2614,17 @@ def four_card_phase(tmp: str, Params) -> dict:
     out["main_mesh4"] = dict(
         wall_s=wall4, phases=st["phases"],
         shard_unique_keys=st["shard_unique_keys"],
+        staged_shapes=st["staged_shapes"],
         nthash_select_launches=kernels.nthash_select.launches,
         read_gbp=syn["total_bases"] / 1e9, same_graph_as_chunked=True)
+    cases = check_nthash_at(
+        torch, np, p.hash_bound,
+        sorted(shapes | {tuple(x) for x in st["staged_shapes"]}),
+        [torch.device("cuda", d) for d in range(4)])
+    out["nthash_select_cases"] = cases
+    if sum(cases.values()):
+        raise SystemExit(f"four cards: nthash_select disagrees with its "
+                         f"plain version: {cases}")
     stats, wall = run_multihost(tmp, main, os.path.join(tmp, "four_mhm"),
                                 512, nproc=4, card_each=True)
     m = _mh_summary(stats, wall)
@@ -2650,7 +2687,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         try:
-            four = four_card_phase(tmp, Params)
+            four = four_card_phase(tmp, Params, np)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(f"four cards: {json.dumps(four)}", flush=True)
@@ -2773,6 +2810,18 @@ def main() -> int:
         print(f"multihost parity: {json.dumps(mhp)}", flush=True)
         mhm = multihost_main(tmp, mp)
         print(f"multihost main: {json.dumps(mhm)}", flush=True)
+        shapes = sorted({tuple(x) for leg in (
+            shp["presimp_0.01"], *sharded.values(), mhp, mhm)
+            for x in leg["staged_shapes"]})
+        cases = check_nthash_at(torch, np, hash_bound, shapes,
+                                [torch.device("cuda")])
+        print(f"nthash_select at the sharded legs' shapes: "
+              f"{json.dumps(cases)}", flush=True)
+        rows[0]["cases"].update(cases)
+        rows[0]["mismatches"] += sum(cases.values())
+        if rows[0]["mismatches"]:
+            raise SystemExit(f"nthash_select: {sum(cases.values())} "
+                             "mismatches at the sharded legs' shapes")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -207,11 +207,13 @@ def main(argv=None):
 
         stats = assemble_from_postcor(params, prefix)
     elif args.multihost:
-        from .parallel.multihost import assemble_multihost, init_distributed
+        from .parallel.multihost import (assemble_multihost,
+                                         close_distributed, init_distributed)
 
         init_distributed()
         stats = assemble_multihost(args.reads, params, prefix,
                                    device=args.device)
+        close_distributed()
     elif args.mesh:
         from .parallel.pipeline import assemble_sharded
 

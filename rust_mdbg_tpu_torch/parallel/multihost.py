@@ -9,8 +9,11 @@ rows of a round are a contiguous slice of the round's global rows.
 
 Input (the reference's per-thread seq_io partitioning, main.rs:834-838):
 a comma-separated file list is dealt round-robin over the processes; a
-single plain FASTA is split by byte range, each process scanning forward to
-the next record boundary.  Every process runs the same number of rounds
+single plain FASTA is split by byte range, a record belonging to the range
+that holds its '>' (fasta_range_records).  A process reads its share
+through the chunked driver's native reader, skipping the records before
+its range (counted by a byte scan, count_range_records), and stages it as
+the sharded pipeline does.  Every process runs the same number of rounds
 (one up-front exchange of record counts) and feeds empty rows past its own
 end.
 
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..params import Params, staging_width
+from ..params import Params
 from ..utils.alloc import full_fast
 from .mesh import ShardMesh
 
@@ -82,6 +85,16 @@ def init_distributed(coordinator: str | None = None,
         rank=process_id,
         timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
     return dist.get_rank(), dist.get_world_size()
+
+
+def close_distributed():
+    """Leave the process group after a run: a barrier, so that no process
+    exits (taking down process 0's store) while another still finishes a
+    collective, then destroy_process_group.  Nothing to do without a
+    group."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def _card_id(dev: torch.device) -> str:
@@ -294,31 +307,19 @@ def host_inputs(reads_path: str, pid: int, nproc: int) -> list:
     return [(p, pid * step, min(fsize, (pid + 1) * step))]
 
 
-def host_batches(inputs: list, B_host: int, L: int):
-    """Yield (codes [B_host, L] uint8, lengths [B_host], raw list) from this
-    process's share; rows past the last read hold code 5 and length 0."""
-    from ..utils.seq import BASE_CODE
+def share_chunks(inputs: list, B_host: int, L: int, mean_len: int = 0):
+    """This process's share (host_inputs) as core/fastx_feed's tuples,
+    through the native reader: of each (path, start, end), the records
+    count_range_records places in [start, end) — the records
+    fasta_range_records yields — found by their index in the file."""
+    from ..core.fastx_feed import stream_chunks
+    from .pipeline import read_range
 
-    codes = full_fast((B_host, L), 5, np.uint8)
-    lengths = np.zeros(B_host, dtype=np.int32)
-    raw: list[bytes] = []
     for path, start, end in inputs:
-        for _name, seq in fasta_range_records(path, start, end):
-            if len(seq) > L:
-                raise ValueError(
-                    f"read of {len(seq)} bp exceeds the staging width {L}; "
-                    "set --max-read-len")
-            c = BASE_CODE[np.frombuffer(seq, dtype=np.uint8)]
-            codes[len(raw), : len(c)] = c
-            lengths[len(raw)] = len(c)
-            raw.append(seq)
-            if len(raw) == B_host:
-                yield codes, lengths, raw
-                codes = full_fast((B_host, L), 5, np.uint8)
-                lengths = np.zeros(B_host, dtype=np.int32)
-                raw = []
-    if raw:
-        yield codes, lengths, raw
+        skip = count_range_records(path, 0, start) if start else 0
+        yield from read_range(
+            stream_chunks(path, B_host, B_host, L, mean_len), skip,
+            count_range_records(path, start, end))
 
 
 def local_devices(device=None) -> list:
@@ -339,15 +340,16 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
     this (after init_distributed).  Stats as the JAX function's (nb_reads
     counts this process's reads), plus the backend, its rule, `phases`
     and the per-shard windows and unique keys of this process's shards."""
-    from ..io import fastx
+    from ..core.chunked import host_feed, plan_chunks
     from ..io.sequences import remove_stale, write_records_native
     from ..ops import u64
-    from ..ops.extract import capacity
     from ..ops.kernels import build_all
     from ..utils.timing import PhaseTimer
     from .edges import gfa_parts, route_records
-    from .pipeline import (ShardedPipeline, gathered_gfa, host_nodes,
-                           raw_blob, record_spans, sharded_edges_enabled)
+    from .pipeline import (RawBlob, ShardedPipeline, exact_rounds,
+                           gathered_gfa, host_nodes, prefetched,
+                           record_spans, sharded_edges_enabled,
+                           staged_rounds)
 
     mesh = ProcessMesh(local_devices(device))
     pid, nproc, n, dl = mesh.pid, mesh.nproc, mesh.n, mesh.d_local
@@ -356,13 +358,12 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
         if mesh.devices[0].type == "cuda":
             build_all()
     inputs = host_inputs(reads_path, pid, nproc)
-    # sizes must agree on every process: take them from the whole input
-    probe = [p for p in str(reads_path).split(",") if p][0]
-    _mean_len, mx = fastx.read_first_n_reads(probe, 100)
-    L = params.max_read_len or staging_width(mx)
     B = ((params.batch_reads + n - 1) // n) * n
     B_host, B_local = B // nproc, B // n
-    pipe = ShardedPipeline(mesh, params, B_local, L, capacity(params, L))
+    # sizes must agree on every process: take them from the whole input
+    plan = plan_chunks([p for p in str(reads_path).split(",") if p][0],
+                       params, chunk_reads=B)
+    pipe = ShardedPipeline(mesh, params, B_local, plan["M"])
 
     if pid == 0:
         remove_stale(prefix)
@@ -370,32 +371,36 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
     # one up-front exchange replaces a per-round liveness collective
     my_reads = sum(count_range_records(p, s, e) for p, s, e in inputs)
     rounds = max(1, -(-max(mesh.gather_objects(my_reads)) // B_host))
-    raw_reads: list[bytes] = []   # this process's reads, local row order
-    batches = host_batches(inputs, B_host, L)
-    zeros_c = full_fast((B_host, L), 5, np.uint8)
-    zeros_l = np.zeros(B_host, dtype=np.int32)
+    raw = RawBlob(B_host)   # this process's reads, local row order
+    feed = prefetched(staged_rounds(exact_rounds(
+        share_chunks(inputs, B_host, plan["L"], plan["mean_len"]), B_host,
+        plan["L"]), plan))
+    lens0 = np.zeros(B_host, dtype=np.int32)
+    empty = host_feed(full_fast((B_host, plan["L"]), 5, np.uint8), lens0,
+                      B_host, plan)
     read_base = 0
-    for _ in range(rounds):
-        with timer.phase("feed"):
-            nxt = next(batches, None)
-        if nxt is None:
-            codes_h, lens_h = zeros_c, zeros_l
-        else:
-            codes_h, lens_h, raw = nxt
-            raw_reads.extend(raw)
-            raw_reads.extend([b""] * (B_host - len(raw)))
-        with timer.phase("steps"):
-            pipe.step([codes_h[j * B_local:(j + 1) * B_local]
-                       for j in range(dl)],
-                      [lens_h[j * B_local:(j + 1) * B_local]
-                       for j in range(dl)], read_base)
-        read_base += B
+    try:
+        for _ in range(rounds):
+            with timer.phase("feed"):
+                item = next(feed, None)
+            if item is None:
+                host, lens = empty, lens0
+                raw.empty_round()
+            else:
+                host, lens, blob, blob_off, fill = item
+                raw.add(blob, blob_off, fill)
+            with timer.phase("steps"):
+                pipe.step(host, lens, read_base)
+            read_base += B
+    finally:
+        feed.close()
     with timer.phase("finalize"):
         shards, bases = pipe.finalize()
     total = bases[-1]
-    stats = dict(nb_reads=sum(1 for r in raw_reads if r), n_devices=n,
+    stats = dict(nb_reads=raw.n_reads, n_devices=n,
                  n_hosts=nproc, rounds=rounds, backend=mesh.backend,
                  backend_rule=BACKEND_RULE, device=str(mesh.devices[0]),
+                 staged_shapes=[[B_local, w] for w in sorted(pipe.widths)],
                  shard_windows=[r["windows"] for r in shards],
                  shard_unique_keys=[r["n_unique"] for r in shards])
     mc = pipe.mc
@@ -403,7 +408,7 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
     if sharded_edges_enabled() and total:
         with timer.phase("sequences"):
             if not params.no_basespace:
-                blob, offsets = raw_blob(raw_reads)
+                blob, offsets = raw.arrays()
                 recv = route_records(mesh, shards, B, B_host, dl)
                 for j, r in enumerate(recv):
                     if not r.shape[0]:
@@ -447,7 +452,7 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
             rows = meta[:, 4].astype(np.int64)
             mine = np.nonzero((rows % B) // B_host == pid)[0]
             if not params.no_basespace and mine.size:
-                blob, offsets = raw_blob(raw_reads)
+                blob, offsets = raw.arrays()
                 write_records_native(
                     f"{prefix}.h{pid}.sequences", params.k, params.l,
                     index[mine], nodes["vec"][mine], blob,

@@ -33,12 +33,13 @@ over its minimizer capacity) raises, as in the JAX package.
 from __future__ import annotations
 
 import os
+import queue
+import threading
 
 import numpy as np
 import torch
 
 from ..ops.extract import device_extract
-from ..params import staging_width
 from ..utils.timing import PhaseTimer
 from .sharded import bucket_by_owner, owner_of
 
@@ -52,11 +53,11 @@ def meta_columns(params) -> int:
 
 class ShardedPipeline:
     """Extraction, routing and per-shard window buffers over `mesh` for
-    batches of B_local rows a shard and staging width L, M minimizer slots
-    a read.  A window row is int64 [2 + mc + k]: key lo, hi, meta (u32
-    values), canonical vector."""
+    batches of B_local rows a shard, M minimizer slots a read.  A window
+    row is int64 [2 + mc + k]: key lo, hi, meta (u32 values), canonical
+    vector.  `widths` collects the staged widths the steps ran at."""
 
-    def __init__(self, mesh, params, B_local: int, L: int, M: int):
+    def __init__(self, mesh, params, B_local: int, M: int):
         self.mesh = mesh
         self.params = params
         self.B_local = B_local
@@ -66,6 +67,7 @@ class ShardedPipeline:
                        compact_output=True,
                        ref_cuts=getattr(params, "seq_ref_cuts", False))
         self.blocks: list[list[torch.Tensor]] = [[] for _ in mesh.local]
+        self.widths: set[int] = set()
 
     def _window_rows(self, codes, lengths, read_base: int, shard: int):
         out = device_extract(codes, lengths, **self.kw)
@@ -80,17 +82,24 @@ class ShardedPipeline:
                          dim=1)
         return rows, out["overflow"].sum()
 
-    def step(self, codes: list, lengths: list, read_base: int):
-        """One round: codes[i] [B_local, L] uint8 and lengths[i] [B_local]
-        (numpy) are the rows of local shard i; read_base is the global row
-        of the round's first read.  Raises on an extraction overflow."""
-        n = self.mesh.n
+    def step(self, host: tuple, lengths: np.ndarray, read_base: int):
+        """One round: host is core/chunked.host_feed's arrays of the rows
+        of this process's shards ((packed, mask) or (codes,)), lengths
+        their read lengths; local shard i takes rows [i * B_local,
+        (i + 1) * B_local).  read_base is the global row of the round's
+        first read.  Raises on an extraction overflow."""
+        from ..core.chunked import to_device
+        from ..ops.pack import unpack_codes
+
+        n, Bl = self.mesh.n, self.B_local
         sends, n_over = [], []
         for i, (s, dev) in enumerate(zip(self.mesh.local, self.mesh.devices)):
-            rows, over = self._window_rows(
-                torch.from_numpy(np.ascontiguousarray(codes[i])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(lengths[i])).to(dev),
-                read_base, s)
+            rs = slice(i * Bl, (i + 1) * Bl)
+            staged, lens = to_device(tuple(a[rs] for a in host),
+                                     lengths[rs], dev)
+            codes = unpack_codes(*staged) if len(staged) == 2 else staged[0]
+            self.widths.add(int(codes.shape[1]))
+            rows, over = self._window_rows(codes, lens, read_base, s)
             sends.append(bucket_by_owner(rows, owner_of(rows[:, 0], n), n))
             n_over.append(over)
         for blocks, rows in zip(self.blocks, self.mesh.all_to_all(sends)):
@@ -152,11 +161,159 @@ def record_spans(meta: np.ndarray, read_offsets: np.ndarray,
     return abs_start, abs_end, rev8, sq0, sq1
 
 
-def raw_blob(raw_reads: list):
-    """(bytes of every read back to back as uint8, offsets [n + 1])."""
-    offsets = np.zeros(len(raw_reads) + 1, dtype=np.int64)
-    np.cumsum([len(r) for r in raw_reads], out=offsets[1:])
-    return np.frombuffer(b"".join(raw_reads), dtype=np.uint8), offsets
+class RawBlob:
+    """The raw bytes of a process's reads, round by round, as the
+    .sequences writers read them: a round of `rows` rows adds its feed
+    tuple's blob and offsets, rows past its reads empty."""
+
+    def __init__(self, rows: int):
+        self.rows = rows
+        self.blobs: list[np.ndarray] = []
+        self.offsets: list[np.ndarray] = []
+        self.size = 0
+        self.n_reads = 0
+
+    def add(self, blob: np.ndarray, blob_off: np.ndarray, fill: int):
+        off = np.full(self.rows, self.size + int(blob_off[fill]), np.int64)
+        off[:fill] = self.size + blob_off[:fill]
+        self.offsets.append(off)
+        self.blobs.append(blob[: int(blob_off[fill])])
+        self.size += int(blob_off[fill])
+        self.n_reads += fill
+
+    def empty_round(self):
+        self.add(np.zeros(0, np.uint8), np.zeros(1, np.int64), 0)
+
+    def arrays(self):
+        """(every read's bytes back to back as uint8, offsets [rows + 1])."""
+        return (np.concatenate(self.blobs) if self.blobs
+                else np.zeros(0, np.uint8),
+                np.concatenate(self.offsets + [np.array([self.size])]))
+
+
+def read_range(chunks, skip: int, take: int):
+    """core/fastx_feed's tuples (codes, lengths, blob, blob_off, fill) of
+    the `take` reads after the first `skip` (row slices, no copies); stops
+    reading once they are out."""
+    seen = 0
+    try:
+        for codes, lens, blob, off, fill in chunks:
+            a = min(fill, max(0, skip - seen))
+            b = min(fill, max(0, skip + take - seen))
+            seen += fill
+            if b > a:
+                yield (codes[a:b], lens[a:b], blob[off[a]:off[b]],
+                       off[a:b + 1] - off[a], b - a)
+            if seen >= skip + take:
+                return
+    finally:
+        close = getattr(chunks, "close", None)
+        if close is not None:
+            close()
+
+
+def _take_rows(pend: list, n: int, B: int, L: int) -> tuple:
+    """The first n reads of the pending tuples as one tuple of B rows."""
+    codes0, lens0, blob0, off0, fill0 = pend[0]
+    if n == fill0 == B == codes0.shape[0]:
+        pend.pop(0)
+        return codes0, lens0, blob0[: off0[B]], off0[: B + 1], B
+    codes = np.zeros((B, L), np.uint8)
+    lens = np.zeros(B, np.int32)
+    blobs, offs, r, size = [], [np.zeros(1, np.int64)], 0, 0
+    while r < n:
+        c, ln, bl, of, fill = pend[0]
+        m = min(fill, n - r)
+        codes[r:r + m] = c[:m]
+        lens[r:r + m] = ln[:m]
+        blobs.append(bl[: of[m]])
+        offs.append(of[1:m + 1] + size)
+        size += int(of[m])
+        r += m
+        if m == fill:
+            pend.pop(0)
+        else:
+            pend[0] = (c[m:], ln[m:], bl[of[m]:], of[m:] - of[m], fill - m)
+    return codes, lens, np.concatenate(blobs), np.concatenate(offs), n
+
+
+def exact_rounds(chunks, B: int, L: int):
+    """core/fastx_feed's tuples re-cut to rounds of exactly B reads, the
+    last one short: a round's rows fix the global row of every window, so
+    they must be the B reads the JAX feed puts there, while the native
+    reader returns a short chunk when its raw buffer fills.  Raises on a
+    read over the staging width L."""
+    pend: list = []
+    have = 0
+    for item in chunks:
+        if item[0].shape[1] != L:
+            raise ValueError(
+                f"read of {item[0].shape[1]} bp or more exceeds the staging "
+                f"width {L}; set --max-read-len")
+        if item[4]:
+            pend.append(item)
+            have += item[4]
+        while have >= B:
+            yield _take_rows(pend, B, B, L)
+            have -= B
+    if have:
+        yield _take_rows(pend, have, B, L)
+
+
+def staged_rounds(rounds, plan: dict):
+    """exact_rounds' tuples as (host_feed's arrays, lengths, blob,
+    blob_off, fill): cut to the plan's half width where the round's reads
+    fit and 2-bit packed, as the chunked driver stages a chunk."""
+    from ..core.chunked import host_feed
+
+    for codes, lens, blob, blob_off, fill in rounds:
+        yield (host_feed(codes, lens, len(lens), plan), lens, blob,
+               blob_off, fill)
+
+
+def prefetched(items):
+    """Iterate `items` one item ahead in a thread of its own, so that the
+    host feed (parse, cut, pack) overlaps the device steps.  An error of
+    the thread is raised here; leaving the loop stops the thread."""
+    q: queue.Queue = queue.Queue(maxsize=1)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def pump():
+        try:
+            for item in items:
+                if not put(item):
+                    return
+            put(end)
+        except BaseException as e:  # surfaced on the consumer
+            put(e)
+        finally:
+            close = getattr(items, "close", None)
+            if close is not None:
+                close()
+
+    t = threading.Thread(target=pump, name="sharded-feed", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=60)
 
 
 def host_nodes(shards: list) -> dict:
@@ -202,10 +359,16 @@ def assemble_sharded(reads_path: str, params, prefix: str,
     join), plus `phases` (seconds: feed, steps, finalize, sequences, gfa),
     `shard_windows` and `shard_unique_keys` (per shard: the windows it
     received and its unique keys; the JAX run keeps at most 2^20 of the
-    latter) and `device`."""
-    from ..io import fastx
+    latter), `staged_shapes` (the [rows, width] a shard's extraction ran
+    at) and `device`.
+
+    The feed is the chunked driver's (core/chunked.plan_chunks): the
+    native reader, re-cut to rounds of exactly B reads, each cut to the
+    half staging width where its reads fit and 2-bit packed, one round
+    ahead in a thread; `feed` is the time the steps wait for it."""
+    from ..core.chunked import plan_chunks
+    from ..core.fastx_feed import stream_chunks
     from ..io.sequences import remove_stale, write_records_native_sharded
-    from ..ops.extract import capacity
     from ..ops.kernels import build_all
     from .edges import gfa_parts
     from .mesh import make_mesh
@@ -219,46 +382,43 @@ def assemble_sharded(reads_path: str, params, prefix: str,
     with timer.phase("compile"):
         if mesh.devices[0].type == "cuda":
             build_all()
-    _mean_len, mx = fastx.read_first_n_reads(reads_path, 100)
-    L = params.max_read_len or staging_width(mx)
     B = ((params.batch_reads + n - 1) // n) * n
-    B_local = B // n
-    pipe = ShardedPipeline(mesh, params, B_local, L, capacity(params, L))
+    plan = plan_chunks(reads_path, params, chunk_reads=B)
+    pipe = ShardedPipeline(mesh, params, B // n, plan["M"])
 
     remove_stale(prefix)
-    raw_reads: list[bytes] = []
-    nb_reads = 0
+    raw = RawBlob(B)
     read_base = 0
-    batches = fastx.batches(reads_path, B, L)
-    while True:
-        with timer.phase("feed"):
-            batch = next(batches, None)
-        if batch is None:
-            break
-        if batch.codes.shape != (B, L):
-            raise ValueError(
-                f"read of {batch.codes.shape[1]} bp or more exceeds the "
-                f"staging width {L}; set --max-read-len")
-        with timer.phase("steps"):
-            pipe.step([batch.codes[s * B_local:(s + 1) * B_local]
-                       for s in mesh.local],
-                      [batch.lengths[s * B_local:(s + 1) * B_local]
-                       for s in mesh.local], read_base)
-        raw_reads.extend(batch.raw)
-        nb_reads += batch.n_reads
-        read_base += B
+    rounds = prefetched(staged_rounds(exact_rounds(
+        stream_chunks(reads_path, B, B, plan["L"], plan["mean_len"]), B,
+        plan["L"]), plan))
+    try:
+        while True:
+            with timer.phase("feed"):
+                item = next(rounds, None)
+            if item is None:
+                break
+            host, lens, blob, blob_off, fill = item
+            with timer.phase("steps"):
+                pipe.step(host, lens, read_base)
+            raw.add(blob, blob_off, fill)
+            read_base += B
+    finally:
+        rounds.close()
     with timer.phase("finalize"):
         shards, bases = pipe.finalize()
         nodes = host_nodes(shards)
     total = bases[-1]
     index = np.arange(total, dtype=np.uint32)
-    stats = dict(nb_reads=nb_reads, nb_windows=int(nodes["count"].sum()),
-                 n_devices=n, device=str(mesh.devices[0]),
+    stats = dict(nb_reads=raw.n_reads,
+                 nb_windows=int(nodes["count"].sum()), n_devices=n,
+                 device=str(mesh.devices[0]), staged_shapes=[
+                     [B // n, w] for w in sorted(pipe.widths)],
                  shard_windows=[r["windows"] for r in shards],
                  shard_unique_keys=[r["n_unique"] for r in shards])
     with timer.phase("sequences"):
         if not params.no_basespace and total:
-            blob, offsets = raw_blob(raw_reads)
+            blob, offsets = raw.arrays()
             meta = nodes["meta"]
             spans = record_spans(meta, offsets, meta[:, 4].astype(np.int64),
                                  params.l)

@@ -1,13 +1,12 @@
-"""Sharded counting: extraction per shard, routing by key owner, counting.
+"""Routing by key owner: the route of the sharded pipeline.
 
-Counterpart of the JAX package's `parallel/sharded.py`, the TPU-native form
-of the reference's shared-memory concurrency (rust-mdbg src/main.rs: the
-seq_io worker pool, the DashMap counter, the NODE_INDEX atomic):
-
-  read batches are split over the shards; every shard extracts windows
-  from its rows and routes each to owner = key_lo mod n (one all_to_all);
-  the owner counts locally by sort and segment reduce; global ids start at
-  the exclusive prefix of the per-shard unique counts (all_gather).
+Counterpart of the routing half of the JAX package's `parallel/sharded.py`,
+the TPU-native form of the reference's shared-memory concurrency
+(rust-mdbg src/main.rs: the seq_io worker pool, the DashMap counter): every
+shard extracts windows from its rows and routes each to owner = key_lo mod
+n by one all_to_all.  The extraction, the route and the owner's count are
+those of parallel/pipeline.ShardedPipeline; the JAX package's one-shot
+count step has no second copy here.
 
 The owner rule reads key_lo as an unsigned 64-bit value
 (`u64.mod_small`): int64 `%` gives the wrong owner for every key at or
@@ -21,7 +20,6 @@ a [N, n + 1] one-hot cumsum instead.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import u64
@@ -39,73 +37,3 @@ def bucket_by_owner(rows: torch.Tensor, owner: torch.Tensor, n: int):
     order = torch.sort(owner, stable=True).indices
     counts = torch.bincount(owner, minlength=n)
     return rows[order], counts.tolist()
-
-
-def count_local(key_lo: torch.Tensor, key_hi: torch.Tensor):
-    """Sort and segment-reduce one shard's received keys: (unique lo, unique
-    hi, counts), unique keys in unsigned (lo, hi) order."""
-    perm = u64.lexsort([key_lo, key_hi], [True, True])
-    slo, shi = key_lo[perm], key_hi[perm]
-    n = slo.shape[0]
-    head = torch.ones(n, dtype=torch.bool, device=slo.device)
-    head[1:] = (slo[1:] != slo[:-1]) | (shi[1:] != shi[:-1])
-    head_pos = torch.nonzero(head).flatten()
-    counts = torch.diff(head_pos, append=head_pos.new_tensor([n]))
-    return slo[head_pos], shi[head_pos], counts
-
-
-def make_sharded_count_step(mesh, params, B: int, L: int, M: int):
-    """The count step over `mesh`: step(codes [B, L] uint8, lengths [B])
-    (numpy; shard s takes rows [s * B / n, (s + 1) * B / n)) -> dict of
-    per-shard lists: unique_lo, unique_hi, counts (tensors on the shard's
-    device), n_unique, id_base (ints); and overflow, the reads over their
-    minimizer capacity summed over the mesh (psum).  B must be divisible
-    by the mesh size."""
-    from ..ops.extract import device_extract
-
-    n = mesh.n
-    if B % n:
-        raise ValueError(f"batch of {B} rows over {n} shards")
-    B_local = B // n
-    kw = dict(l=params.l, k=params.k, hash_bound=params.hash_bound, M=M,
-              already_hpc=params.reads_already_hpc)
-
-    def step(codes: np.ndarray, lengths: np.ndarray) -> dict:
-        sends, overflow = [], []
-        for s, dev in zip(mesh.local, mesh.devices):
-            rs = slice(s * B_local, (s + 1) * B_local)
-            out = device_extract(
-                torch.from_numpy(np.ascontiguousarray(codes[rs])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(lengths[rs])).to(dev),
-                **kw)
-            valid = out["valid_w"].reshape(-1)
-            keys = torch.stack([out["key_lo"].reshape(-1)[valid],
-                                out["key_hi"].reshape(-1)[valid]], dim=1)
-            sends.append(bucket_by_owner(keys, owner_of(keys[:, 0], n), n))
-            overflow.append(int(out["overflow"].sum()))
-        recv = mesh.all_to_all(sends)
-        res = dict(unique_lo=[], unique_hi=[], counts=[], n_unique=[])
-        for r in recv:
-            u_lo, u_hi, cnt = count_local(r[:, 0], r[:, 1])
-            res["unique_lo"].append(u_lo)
-            res["unique_hi"].append(u_hi)
-            res["counts"].append(cnt)
-            res["n_unique"].append(int(u_lo.shape[0]))
-        all_unique = mesh.all_gather(res["n_unique"])
-        res["id_base"] = [sum(all_unique[:s]) for s in mesh.local]
-        res["overflow"] = mesh.psum(overflow)
-        return res
-
-    return step
-
-
-def sharded_counts_to_host(out: dict) -> dict:
-    """{(lo, hi): count} over this process's shards of a count step's
-    output (test helper; keys as unsigned ints)."""
-    res: dict[tuple[int, int], int] = {}
-    for lo, hi, cnt in zip(out["unique_lo"], out["unique_hi"],
-                           out["counts"]):
-        for a, b, c in zip(u64.to_numpy(lo).tolist(),
-                           u64.to_numpy(hi).tolist(), cnt.tolist()):
-            res[(a, b)] = c
-    return res

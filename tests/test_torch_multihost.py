@@ -1,5 +1,6 @@
 """Port parity for --multihost: the byte-range input split against the JAX
-package's, the process mesh's all_to_all over two gloo processes of two
+package's (and a share read through the native reader against it), the
+process mesh's all_to_all over two gloo processes of two
 shards each against the single-process mesh, and two CLI processes joined
 over gloo on the CPU against JAX `assemble_sharded(n_devices=2)`.
 
@@ -116,9 +117,42 @@ def test_fasta_range_records_partition(tmp_path):
         assert got == recs, ranges
 
 
+@pytest.mark.parametrize("B", [1, 5, 16])
+def test_share_chunks_read_the_range_records(tmp_path, B):
+    """A process's share through the native reader (chunks of 4 reads)
+    re-cut by exact_rounds into rounds of B reads: for splits into 1, 2
+    and 3 byte ranges, each share's reads, codes and lengths are those of
+    fasta_range_records's records, every round but the last holds B."""
+    from rust_mdbg_tpu_torch.parallel.multihost import share_chunks
+    from rust_mdbg_tpu_torch.parallel.pipeline import exact_rounds
+    from rust_mdbg_tpu_torch.utils.seq import BASE_CODE
+
+    path, _recs = _fasta(tmp_path)
+    size, L = os.path.getsize(path), 512
+    for k in (1, 2, 3):
+        step = -(-size // k)
+        for pid in range(k):
+            share = (path, pid * step, min(size, (pid + 1) * step))
+            want = [seq for _, seq in fasta_range_records(*share)]
+            rounds = list(exact_rounds(share_chunks([share], 4, L), B, L))
+            assert [r[4] for r in rounds[:-1]] == [B] * (len(rounds) - 1)
+            got = []
+            for codes, lens, blob, off, fill in rounds:
+                assert codes.shape == (B, L) and not lens[fill:].any()
+                for i in range(fill):
+                    seq = bytes(blob[off[i]:off[i + 1]])
+                    assert lens[i] == len(seq)
+                    np.testing.assert_array_equal(
+                        codes[i, :len(seq)],
+                        BASE_CODE[np.frombuffer(seq, np.uint8)])
+                    got.append(seq)
+            assert got == want, (k, pid)
+
+
 _MESH_WORKER = r"""
 import json, sys, torch
-from rust_mdbg_tpu_torch.parallel.multihost import ProcessMesh, init_distributed
+from rust_mdbg_tpu_torch.parallel.multihost import (
+    ProcessMesh, close_distributed, init_distributed)
 pid, nproc = init_distributed()
 mesh = ProcessMesh(["cpu", "cpu"])
 sends = []
@@ -132,6 +166,7 @@ json.dump(dict(local=mesh.local, backend=mesh.backend,
                gathered=mesh.all_gather([10 * s for s in mesh.local]),
                psum=mesh.psum([1, 2]), objs=mesh.gather_objects(pid)),
           open(sys.argv[1], "w"))
+close_distributed()
 """
 
 

@@ -1,10 +1,11 @@
 """Port parity for the sharded stages: `finalize_windows` against
 `jax.jit(_finalize)` (random padded buffers, and the buffers of one JAX
-sharded pipeline step carried across with window_buffers_from_numpy), the
-count step against `make_sharded_count_step` on the 8 virtual CPU devices,
-the unsigned owner rule against numpy's uint64 `%`, the mesh's all_to_all
-layout, and the distributed join's bitmask blocks past G_SLOTS against the
-gathered join.  Integers throughout: every comparison is exact."""
+sharded pipeline step carried across with window_buffers_from_numpy), a
+round of the port's sharded pipeline against `make_sharded_count_step` on
+the 8 virtual CPU devices, the unsigned owner rule against numpy's uint64
+`%`, the mesh's all_to_all layout, and the distributed join's bitmask
+blocks past G_SLOTS against the JAX package's gathered join.  Integers
+throughout: every comparison is exact."""
 
 import functools
 
@@ -21,14 +22,16 @@ from rust_mdbg_tpu.parallel.pipeline import make_sharded_pipeline
 from rust_mdbg_tpu.parallel.sharded import (
     make_sharded_count_step as jax_count_step,
     sharded_counts_to_host as jax_counts_to_host)
+from rust_mdbg_tpu.core.graph import build_gfa as jax_build_gfa
 from rust_mdbg_tpu_torch.core.graph import build_gfa
 from rust_mdbg_tpu_torch.ops import u64
+from rust_mdbg_tpu_torch.ops.pack import pack_codes_np
 from rust_mdbg_tpu_torch.ops.sort_count import (finalize_windows,
                                                 window_buffers_from_numpy)
 from rust_mdbg_tpu_torch.parallel import edges
 from rust_mdbg_tpu_torch.parallel.mesh import ShardMesh
-from rust_mdbg_tpu_torch.parallel.sharded import (
-    make_sharded_count_step, owner_of, sharded_counts_to_host)
+from rust_mdbg_tpu_torch.parallel.pipeline import ShardedPipeline
+from rust_mdbg_tpu_torch.parallel.sharded import owner_of
 from rust_mdbg_tpu_torch.params import Params
 
 torch.set_num_threads(2)
@@ -163,32 +166,39 @@ def _random_batch(B, L, seed=0):
 
 @pytest.mark.parametrize("n", [4, 8])
 def test_count_step_matches_jax(n):
-    """Per shard: the unique keys in (lo, hi) order, their counts, the
-    unique count and the id base, equal to the JAX count step's."""
+    """One round of the port's sharded pipeline (extract, route by owner,
+    finalize_windows at minab 1, the id bases) against the JAX count step:
+    per shard the same unique keys with the same counts, the same unique
+    count and id base.  The JAX step lists a shard's keys in (lo, hi)
+    order, the port in first-occurrence order."""
     B, L, M = 2 * n, 1024, 160
     fn, shardings, _cap = jax_count_step(
         jax_make_mesh(n), JaxParams(k=4, l=8, density=0.05), B, L, M)
     codes, lengths = _random_batch(B, L)
     want = fn(jax.device_put(codes, shardings[0]),
               jax.device_put(lengths, shardings[1]))
-    step = make_sharded_count_step(ShardMesh(n, ["cpu"] * n),
-                                   Params(k=4, l=8, density=0.05), B, L, M)
-    got = step(codes, lengths)
-    assert got["overflow"] == 0
+    pipe = ShardedPipeline(
+        ShardMesh(n, ["cpu"] * n),
+        Params(k=4, l=8, density=0.05, min_kmer_abundance=1), B // n, M)
+    pipe.step(pack_codes_np(codes), lengths, 0)
+    res, bases = pipe.finalize()
     w_n = np.asarray(want["n_unique"]).reshape(-1)
-    assert got["n_unique"] == w_n.tolist()
-    assert got["id_base"] == np.asarray(want["id_base"]).reshape(-1).tolist()
-    for s in range(n):
+    assert [r["n_unique"] for r in res] == [r["n_pass"] for r in res] \
+        == w_n.tolist()
+    assert bases[:-1] == np.asarray(want["id_base"]).reshape(-1).tolist()
+    assert pipe.widths == {L}
+    got = {}
+    for s, r in enumerate(res):
         m = int(w_n[s])
-        for key, mine in (("unique_lo", got["unique_lo"][s]),
-                          ("unique_hi", got["unique_hi"][s])):
+        lo, hi = u64.to_numpy(r["key_lo"]), u64.to_numpy(r["key_hi"])
+        order = np.lexsort((hi, lo))
+        for key, mine in (("unique_lo", lo[order]), ("unique_hi", hi[order]),
+                          ("counts", r["count"].numpy()[order])):
             np.testing.assert_array_equal(
-                u64.to_numpy(mine),
-                np.asarray(want[key]).reshape(n, -1)[s, :m])
-        np.testing.assert_array_equal(
-            got["counts"][s].numpy(),
-            np.asarray(want["counts"]).reshape(n, -1)[s, :m])
-    assert sharded_counts_to_host(got) == jax_counts_to_host(want, n)
+                mine, np.asarray(want[key]).reshape(n, -1)[s, :m],
+                err_msg=key)
+        got.update(zip(zip(lo.tolist(), hi.tolist()), r["count"].tolist()))
+    assert got == jax_counts_to_host(want, n)
 
 
 @pytest.mark.parametrize("n", [3, 5])
@@ -252,8 +262,10 @@ def _star_nodes(n_tail: int):
                                                (40, 4, 0.6)])
 def test_distributed_join_past_g_slots(tmp_path, n_tail, n, presimp):
     """The distributed GFA (every bitmask block of a key group over
-    G_SLOTS, presimp removals) equals the gathered join's bytes: the JAX
-    join overflows there and falls back to that join."""
+    G_SLOTS, presimp removals) equals the bytes of the JAX package's
+    gathered join, and the port's gathered join writes them too: the JAX
+    distributed join overflows there and falls back to its gathered
+    join."""
     vec = _star_nodes(n_tail)
     m = len(vec)
     rng = np.random.default_rng(n_tail)
@@ -262,13 +274,16 @@ def test_distributed_join_past_g_slots(tmp_path, n_tail, n, presimp):
     meta[:, 0] = rng.integers(20, 90, m)
     meta[:, 1] = rng.integers(1, 10, m)
     meta[:, 2] = rng.integers(1, 10, m)
+    table = dict(index=np.arange(m, dtype=np.uint32),
+                 abundance=count.astype(np.uint32),
+                 seqlen=meta[:, 0].astype(np.uint32),
+                 shift0=meta[:, 1].astype(np.uint16),
+                 shift1=meta[:, 2].astype(np.uint16))
     path = str(tmp_path / "g.gfa")
-    build_gfa(path, dict(index=np.arange(m, dtype=np.uint32),
-                         abundance=count.astype(np.uint32),
-                         seqlen=meta[:, 0].astype(np.uint32),
-                         shift0=meta[:, 1].astype(np.uint16),
-                         shift1=meta[:, 2].astype(np.uint16)),
-              vec, presimp=presimp)
+    jax_build_gfa(path, table, vec, presimp=presimp)
+    port_path = str(tmp_path / "port.gfa")
+    build_gfa(port_path, table, vec, presimp=presimp)
+    assert open(port_path).read() == open(path).read()
     bounds = np.linspace(0, m, n + 1).astype(int).tolist()
     shards = [dict(vec=u64.from_numpy(vec[a:b], "cpu"),
                    count=torch.from_numpy(count[a:b]),

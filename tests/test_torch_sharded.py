@@ -2,7 +2,8 @@
 package's on its 8 virtual CPU devices, in .gfa bytes and .sequences
 records, on tests/test_sharded_stress.py's corpora: errored reads on both
 strands with presimp off (0), at its default and at 0.6 (where removals
-fire), raw and pre-HPC'd, uneven reads with a short last batch, the
+fire), raw and pre-HPC'd, uneven reads with a short last batch, rounds
+staged at the half and at the full width, the
 gathered join (MDBG_SHARDED_EDGES=0), the CLI, and the two runs the JAX
 package also refuses (a read over its minimizer capacity, a read over the
 staging width).  The JAX outputs are made once per module."""
@@ -116,6 +117,27 @@ def test_cli_mesh(tmp_path, monkeypatch, corpora, jax_runs):
                      "--prefix", "cli"]) == 0
     assert gfa_bytes("cli") == gfa_bytes(jax_runs["err4"][0])
     assert records("cli") == records(jax_runs["err4"][0])
+
+
+def test_rounds_at_both_widths_match_jax(tmp_path):
+    """Reads of 1,000 bp, then past the length sample reads of 1,800 bp:
+    the feed stages the short rounds at the half width and the others at
+    the full width, and the run writes the JAX run's bytes."""
+    rng = np.random.default_rng(11)
+    genome = "".join(rng.choice(list("ACGT"), 12_000))
+    path = tmp_path / "widths.fa"
+    with open(path, "w") as f:
+        for i, rl in enumerate([1000] * 104 + [1800] * 20):
+            at = int(rng.integers(0, len(genome) - rl))
+            f.write(f">w{i}\n{genome[at:at + rl]}\n")
+    prefix, jprefix = str(tmp_path / "port"), str(tmp_path / "jax")
+    st = assemble_sharded(str(path), Params(**KW), prefix, n_devices=4,
+                          device="cpu")
+    jax_sharded(str(path), JaxParams(engine="device", **KW), jprefix,
+                n_devices=4)
+    assert st["staged_shapes"] == [[2, 1024], [2, 2048]]
+    assert gfa_bytes(prefix) == gfa_bytes(jprefix)
+    assert records(prefix) == records(jprefix) and records(prefix)
 
 
 def test_extraction_overflow_raises(tmp_path, corpora):
