@@ -27,8 +27,9 @@ from ..io import fastx
 
 
 def stream_chunks(path: str, chunk_reads: int, batch_reads: int,
-                  max_len: int, mean_len: int = 0):
-    """Yield chunk tuples for `path`; native parser when supported."""
+                  max_len: int, mean_len: int = 0, start: int = 0):
+    """Yield chunk tuples for `path`; native parser when supported.
+    `start` (native parser only): the byte offset of the first record."""
     rdr = None
     from ..io import fastx_native
 
@@ -41,9 +42,12 @@ def stream_chunks(path: str, chunk_reads: int, batch_reads: int,
             rdr = None
     if rdr is not None:
         for c in fastx_native.chunks_prefetched(
-                path, chunk_reads, max_len, mean_len_hint=mean_len):
+                path, chunk_reads, max_len, mean_len_hint=mean_len,
+                start=start):
             yield c.codes, c.lengths, c.raw, c.raw_off, c.n
         return
+    if start:
+        raise ValueError(f"{path}: a byte offset needs the native reader")
     yield from _python_chunks(path, chunk_reads, batch_reads, max_len)
 
 

@@ -68,7 +68,10 @@ class NativeReader:
     """Chunk iterator over a FASTX file via the native parser."""
 
     def __init__(self, path: str, chunk_reads: int, max_len: int,
-                 nthreads: int | None = None, mean_len_hint: int = 0):
+                 nthreads: int | None = None, mean_len_hint: int = 0,
+                 start: int = 0):
+        """`start`: the byte offset of the first record to parse (plain
+        files only)."""
         lib = load("fastx")
         lib.fx_open.restype = ctypes.c_void_p
         lib.fx_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
@@ -80,6 +83,8 @@ class NativeReader:
         lib.fx_long.restype = ctypes.c_int64
         lib.fx_long.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 4
         lib.fx_close.argtypes = [ctypes.c_void_p]
+        lib.fx_seek.restype = ctypes.c_int
+        lib.fx_seek.argtypes = [ctypes.c_void_p, ctypes.c_int64]
         self._lib = lib
         if nthreads is None:
             nthreads = max(1, (os.cpu_count() or 2) - 1)
@@ -87,6 +92,10 @@ class NativeReader:
                               nthreads)
         if not self._h:
             raise FileNotFoundError(path)
+        if start and lib.fx_seek(self._h, start) != 0:
+            self.close()
+            raise ValueError(f"cannot start {path} at byte {start}: only a "
+                             "plain file within its size can")
         self.chunk_reads = chunk_reads
         self.max_len = max_len
         # raw blob sized to the worst case the codes buffer admits would be
@@ -189,9 +198,10 @@ PUMP_THREAD = "fastx-prefetch"
 
 
 def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
-                      mean_len_hint: int = 0, depth: int = 1):
+                      mean_len_hint: int = 0, depth: int = 1,
+                      start: int = 0):
     """Iterate NativeChunks with a background parse thread so file parsing
-    overlaps device compute.
+    overlaps device compute (from byte `start`, a record's first byte).
 
     Chunk CONSTRUCTION is token-gated: the pump allocates chunk N+1 only
     after the consumer has taken chunk N off the queue.  This bounds live
@@ -205,7 +215,7 @@ def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
     before the native reader is closed: closing it under a running parse
     crashes the process."""
     rdr = NativeReader(path, chunk_reads, max_len,
-                       mean_len_hint=mean_len_hint)
+                       mean_len_hint=mean_len_hint, start=start)
     q: queue.Queue = queue.Queue(maxsize=depth)
     build_tokens = threading.Semaphore(depth)
     stop = threading.Event()

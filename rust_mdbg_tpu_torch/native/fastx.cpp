@@ -398,6 +398,18 @@ int64_t fx_long(void* h, uint8_t* raw_out, uint8_t* codes_out,
     return o;
 }
 
+// Start parsing a plain file at byte `offset`, the first byte of a record
+// (or the file's end): a process reads its byte-range share of a FASTA
+// without parsing what lies before it.  Returns 0, or -1 for a .gz input
+// (streamed: no offsets) or an offset outside the file.
+int fx_seek(void* h, int64_t offset) {
+    Fx* f = (Fx*)h;
+    if (f->gz || offset < 0 || (size_t)offset > f->map_size) return -1;
+    f->pos = (size_t)offset;
+    f->dropped = f->pos & ~((size_t)4095);
+    return 0;
+}
+
 void fx_close(void* h) {
     Fx* f = (Fx*)h;
     if (f->map) munmap((void*)f->map, f->map_size);

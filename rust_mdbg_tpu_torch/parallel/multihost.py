@@ -11,9 +11,9 @@ Input (the reference's per-thread seq_io partitioning, main.rs:834-838):
 a comma-separated file list is dealt round-robin over the processes; a
 single plain FASTA is split by byte range, a record belonging to the range
 that holds its '>' (fasta_range_records).  A process reads its share
-through the chunked driver's native reader, skipping the records before
-its range (counted by a byte scan, count_range_records), and stages it as
-the sharded pipeline does.  Every process runs the same number of rounds
+through the chunked driver's native reader, which starts at the first
+record of its range and stops after the range's last (counted by a byte
+scan, count_range_records), and stages it as the sharded pipeline does.  Every process runs the same number of rounds
 (one up-front exchange of record counts) and feeds empty rows past its own
 end.
 
@@ -307,19 +307,39 @@ def host_inputs(reads_path: str, pid: int, nproc: int) -> list:
     return [(p, pid * step, min(fsize, (pid + 1) * step))]
 
 
+def first_record_at(path: str, start: int) -> int:
+    """Byte offset of the first record whose '>' lies at or after `start`
+    (the ownership rule of count_range_records), or the file's size."""
+    size = os.path.getsize(path)
+    if start <= 0:
+        return 0
+    with open(path, "rb") as f:
+        pos, prev = start - 1, b""
+        f.seek(pos)
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                return size
+            i = (prev + chunk).find(b"\n>")
+            if i >= 0:
+                return pos - len(prev) + i + 1
+            prev, pos = chunk[-1:], pos + len(chunk)
+
+
 def share_chunks(inputs: list, B_host: int, L: int, mean_len: int = 0):
     """This process's share (host_inputs) as core/fastx_feed's tuples,
     through the native reader: of each (path, start, end), the records
     count_range_records places in [start, end) — the records
-    fasta_range_records yields — found by their index in the file."""
+    fasta_range_records yields — parsed from the first of them on."""
     from ..core.fastx_feed import stream_chunks
     from .pipeline import read_range
 
     for path, start, end in inputs:
-        skip = count_range_records(path, 0, start) if start else 0
-        yield from read_range(
-            stream_chunks(path, B_host, B_host, L, mean_len), skip,
-            count_range_records(path, start, end))
+        take = count_range_records(path, start, end)
+        if take:
+            yield from read_range(
+                stream_chunks(path, B_host, B_host, L, mean_len,
+                              start=first_record_at(path, start)), 0, take)
 
 
 def local_devices(device=None) -> list:

@@ -117,6 +117,24 @@ def test_fasta_range_records_partition(tmp_path):
         assert got == recs, ranges
 
 
+def test_first_record_at_finds_the_first_owned_record(tmp_path):
+    """For every start, the first record whose '>' lies at or after it (a
+    line of 2^20 - 4 bases puts one '\\n>' across the scan's read
+    boundary); nothing before the end: the file's size."""
+    from rust_mdbg_tpu_torch.parallel.multihost import first_record_at
+
+    path = tmp_path / "b.fa"
+    data = (b">a\n" + b"A" * ((1 << 20) - 4) + b"\n>b\nACGT\n>c\nGG\n")
+    path.write_bytes(data)
+    heads = [0] + [i + 1 for i in range(len(data) - 1)
+                   if data[i:i + 2] == b"\n>"]
+    assert heads[1] == 1 << 20
+    for start in [0, 1, 2, (1 << 20) - 1, 1 << 20, (1 << 20) + 1,
+                  heads[2], heads[2] + 1, len(data) - 1]:
+        want = min([h for h in heads if h >= start] + [len(data)])
+        assert first_record_at(str(path), start) == want, start
+
+
 @pytest.mark.parametrize("B", [1, 5, 16])
 def test_share_chunks_read_the_range_records(tmp_path, B):
     """A process's share through the native reader (chunks of 4 reads)
