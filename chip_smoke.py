@@ -134,6 +134,23 @@ Phases (any failure exits non-zero, and no result line is printed):
     shard steps ran at (their `staged_shapes`).  With `--cards 4` the
     kernel is held against its plain version at the four-card legs'
     shapes on each of the four cards.
+17. the experiments phase (run right after phase 14; experiments/,
+    eval/, utils/timing): (a) quality-n50's three error legs (err 0.003,
+    0.0003, 0) at its protocol (k=35, l=12, d=0.002, --bf, minabund 2,
+    pre-HPC'd 24,576 bp reads at 100x, 20 % repeats) on a genome cut
+    from 100 to QUALITY_GENOME_MBP = 10 Mbp (1.0 Gbp a leg), each with
+    its record (nodes, edges, contigs, N50, largest, seconds) and
+    nthash_select launches, and one leg at 1 Mbp x 10 on the card and on
+    the CPU, the same record and contig bytes; (b) experiments/scaling at
+    its protocol, meshes of 1, 2, 4 and 8 shards on the card and two gloo
+    processes, one graph across them; (c) scale_demo.parity_check at its
+    0.52 Gbp, whole run = chunked in GFA bytes over at least four chunks;
+    (d) eval/recovery_grid, one point (k=21, l=12, d=0.003) on the parity
+    corpus and its genome, the same recovery on the card and on the CPU;
+    (e) the relay_diag loops (RSS after each of 8 copies of 100 MB: H2D
+    from pageable and from pinned memory, D2H); (f) one chunk inside
+    PhaseTimer.phase(..., profile_dir=...), whose trace must hold the
+    nthash_select kernel.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -1682,6 +1699,235 @@ def tools_phase(tmp: str, syn: dict) -> dict:
     return out
 
 
+# --- experiments (experiments/, eval/, the profiler hook) -----------------
+
+#: quality-n50's genome, cut from its 100 Mbp default to hold the phase
+#: near 200 s: 100x of it is 1.0 Gbp a leg, the main corpus's size
+QUALITY_GENOME_MBP = 10
+#: quality-n50's protocol (experiments/quality_n50.py defaults)
+QUALITY_KW = dict(k=35, l=12, d=0.002, minab=2, seed=11)
+QUALITY_ERRS = (0.003, 0.0003, 0.0)
+
+
+def _quality_leg(workdir: str, err: float, genome_mbp: int, coverage: int,
+                 device: str) -> dict:
+    """quality_n50.run_leg with its nthash_select launches (the count set
+    to 0 just before, read just after) and the contig bytes' length; the
+    leg's assembly outputs are removed after it."""
+    import glob
+
+    from rust_mdbg_tpu_torch.experiments import quality_n50
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    os.makedirs(workdir, exist_ok=True)
+    kernels.nthash_select.launches = 0
+    leg = quality_n50.run_leg(workdir, err, genome_mbp, coverage,
+                              QUALITY_KW["k"], QUALITY_KW["l"],
+                              QUALITY_KW["d"], QUALITY_KW["minab"],
+                              QUALITY_KW["seed"], device=device)
+    leg["nthash_select_launches"] = kernels.nthash_select.launches
+    (fa,) = glob.glob(os.path.join(workdir, "*.msimpl.fa"))
+    with open(fa, "rb") as f:
+        leg["_contigs"] = f.read()
+    for path in glob.glob(os.path.join(workdir, "asm_*")):
+        os.remove(path)
+    return leg
+
+
+def quality_phase(tmp: str, genome_mbp: int = QUALITY_GENOME_MBP,
+                  small_mbp: int = 1) -> dict:
+    """(a) quality-n50's three error legs at its protocol on the card, each
+    launching nthash_select; then one leg at small_mbp x 10 on the card
+    and on the CPU: the same record (its seconds aside) and contig bytes."""
+    legs = {}
+    for err in QUALITY_ERRS:
+        leg = _quality_leg(os.path.join(tmp, "quality"), err, genome_mbp,
+                           100, DEVICE)
+        leg.pop("_contigs")
+        print(f"experiments quality leg (err {err:g}, {genome_mbp} Mbp x "
+              f"100): {json.dumps(leg)}", flush=True)
+        if leg["nthash_select_launches"] <= 0 or not leg["nodes"] \
+                or not leg["n_contigs"]:
+            raise SystemExit(f"quality leg err {err:g}: {leg}")
+        legs[f"{err:g}"] = leg
+    small = {dev: _quality_leg(os.path.join(tmp, f"quality_{dev}"), 0.003,
+                               small_mbp, 10, dev)
+             for dev in (DEVICE, "cpu")}
+    times = ("synth_s", "asm_s", "msimpl_s", "nthash_select_launches")
+    a, b = ({k: v for k, v in small[dev].items() if k not in times}
+            for dev in (DEVICE, "cpu"))
+    if a != b or not a["_contigs"]:
+        raise SystemExit(f"quality leg ({small_mbp} Mbp): cuda and cpu "
+                         "differ")
+    a.pop("_contigs")
+    return dict(genome_mbp=genome_mbp, coverage=100, legs=legs,
+                small=dict(a, genome_mbp=small_mbp, coverage=10,
+                           seconds={dev: {k: small[dev][k] for k in times}
+                                    for dev in small}))
+
+
+def scaling_phase(tmp: str, genome_bp: int | None = None) -> dict:
+    """(b) experiments/scaling at its protocol (400 kb x 12 of 4 kb reads,
+    k=12 l=12 d=0.003): meshes of 1, 2, 4 and 8 shards on the card and
+    the two gloo processes; one graph across every row."""
+    from rust_mdbg_tpu_torch.experiments import scaling
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    os.makedirs(os.path.join(tmp, "scaling"))
+    reads = os.path.join(tmp, "scaling", "reads.fa")
+    total = scaling.synth(reads, genome_bp=genome_bp or scaling.GENOME_BP)
+    rows = []
+    for n in (1, 2, 4, 8):
+        kernels.nthash_select.launches = 0
+        r = scaling.run_mesh(reads, n, device=DEVICE)
+        r["nthash_select_launches"] = kernels.nthash_select.launches
+        rows.append(r)
+    rows.append(scaling.run_multihost(reads, device=DEVICE,
+                                      timeout=MH_TIMEOUT_S))
+    graphs = {(r["nodes"], r["edges"]) for r in rows}
+    if len(graphs) != 1 or rows[0]["nodes"] <= 0 or min(
+            r["nthash_select_launches"] for r in rows[:4]) <= 0:
+        raise SystemExit(f"scaling: rows {rows}")
+    return dict(read_gbp=total / 1e9, rows=rows)
+
+
+def parity_check_phase(tmp: str, genome_bp: int = 10_000_000,
+                       chunk_reads: int = 4096) -> dict:
+    """(c) scale_demo.parity_check on the card at the JAX package's size
+    (10 Mbp x 52, 0.52 Gbp, --minabund 3, err 0.002): whole run = chunked
+    in GFA bytes over at least four chunks."""
+    from rust_mdbg_tpu_torch.experiments import scale_demo
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    d = os.path.join(tmp, "scale_parity")
+    os.makedirs(d)
+    kernels.nthash_select.launches = 0
+    t0 = time.perf_counter()
+    rec = scale_demo.parity_check(d, 0.002, 3, device=DEVICE,
+                                  genome_bp=genome_bp,
+                                  chunk_reads=chunk_reads)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["nthash_select_launches"] = kernels.nthash_select.launches
+    shutil.rmtree(d)
+    if rec["nthash_select_launches"] <= 0:
+        raise SystemExit("scale_demo parity: no nthash_select launch")
+    return rec
+
+
+def recovery_phase(tmp: str) -> dict:
+    """(d) eval/recovery_grid, one point (k=21, l=12, d=0.003) on the
+    parity corpus and its genome (the streaming tiler, then the chunked
+    driver), on the card and on the CPU: the same recovery_pct."""
+    import contextlib
+    import io
+
+    from rust_mdbg_tpu_torch.eval import recovery_grid
+    from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    reads = os.path.join(tmp, "parity.fa")
+    genome = os.path.join(tmp, "parity_genome.fa")
+    again = os.path.join(tmp, "parity_again.fa")
+    # slice_parity's corpus, written again with its genome (same seed)
+    write_synthetic_reads(again, genome_mbp=0.5, coverage=30,
+                          read_len=10_000, error_rate=0.003, seed=3,
+                          genome_out=genome)
+    with open(reads, "rb") as f, open(again, "rb") as g:
+        if f.read() != g.read():
+            raise SystemExit("recovery: the parity corpus did not repeat")
+    os.remove(again)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        kernels.nthash_select.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the histograms
+            series = recovery_grid.sweep(
+                reads, genome, os.path.join(tmp, f"recovery_{dev}"),
+                densities=[0.003], k=21, l=12, device=dev)
+        (point,) = series["density"]
+        out[dev] = dict(recovery_pct=point[1],
+                        seconds=time.perf_counter() - t0,
+                        nthash_select_launches=kernels.nthash_select.launches)
+    if out[DEVICE]["recovery_pct"] != out["cpu"]["recovery_pct"] \
+            or not out["cpu"]["recovery_pct"]:
+        raise SystemExit(f"recovery: cuda and cpu differ: {out}")
+    if DEVICE == "cuda" and out[DEVICE]["nthash_select_launches"] <= 0:
+        raise SystemExit("recovery: no nthash_select launch on the card")
+    return out
+
+
+def profiled_chunk(tmp: str, Params) -> dict:
+    """(f) PhaseTimer.phase(..., profile_dir=...) around one chunk of the
+    parity corpus (the chunked driver's own steps): the trace it writes
+    must hold the nthash_select kernel."""
+    import torch
+
+    from rust_mdbg_tpu_torch.core.chunked import (construct_chunk,
+                                                  host_feed, new_counter,
+                                                  plan_chunks, to_device)
+    from rust_mdbg_tpu_torch.io.fastx_native import NativeReader
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.utils.timing import PhaseTimer
+
+    reads = os.path.join(tmp, "parity.fa")
+    p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
+    plan = plan_chunks(reads, p)
+    rdr = NativeReader(reads, plan["chunk_reads"], plan["L"],
+                       mean_len_hint=plan["mean_len"])
+    try:
+        c = rdr.next_chunk()
+    finally:
+        rdr.close()
+    dev = torch.device(DEVICE)
+    staged, lens_d = to_device(host_feed(c.codes, c.lengths, c.n, plan),
+                               c.lengths, dev)
+    counter = new_counter(p, plan, dev)
+    prof_dir = os.path.join(tmp, "profile")
+    timer = PhaseTimer()
+    kernels.nthash_select.launches = 0
+    with timer.phase("construct", profile_dir=prof_dir):
+        construct_chunk(p, plan, counter, staged, lens_d, c.n)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    launches = kernels.nthash_select.launches
+    (trace,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    hits = [e for e in events if "nthash_select" in e.get("name", "")
+            and e.get("cat") == "kernel"]
+    rec = dict(trace=trace, trace_events=len(events),
+               nthash_select_kernels=len(hits),
+               nthash_select_us=sum(e.get("dur", 0) for e in hits),
+               nthash_select_launches=launches,
+               phase_s=timer.report()["construct"])
+    shutil.rmtree(prof_dir)
+    if DEVICE == "cuda" and (not hits or launches <= 0):
+        raise SystemExit(f"profiled chunk: no nthash_select in {rec}")
+    return rec
+
+
+def experiments_phase(tmp: str, Params, quality_mbp: int = QUALITY_GENOME_MBP
+                      ) -> dict:
+    """Phase 17: (a) quality-n50, (b) scaling, (c) scale_demo's parity
+    check, (d) recovery_grid, (e) the relay_diag loops, (f) the profiler
+    hook; each part's seconds in `seconds`."""
+    from rust_mdbg_tpu_torch.experiments import relay_diag
+
+    out, seconds = {}, {}
+    for name, fn in (("quality", lambda: quality_phase(tmp, quality_mbp)),
+                     ("scaling", lambda: scaling_phase(tmp)),
+                     ("scale_parity", lambda: parity_check_phase(tmp)),
+                     ("recovery", lambda: recovery_phase(tmp)),
+                     ("relay_diag", lambda: relay_diag.run(DEVICE)),
+                     ("profiled_chunk", lambda: profiled_chunk(tmp, Params))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"experiments {name}: {json.dumps(out[name])}", flush=True)
+    out["seconds"] = seconds
+    return out
+
+
 # --- error correction (the EC drivers and their two kernels) ---------------
 
 #: ec-scale's parameters (experiments/ec_scale.py)
@@ -2774,6 +3020,11 @@ def main() -> int:
         print(f"tools: {json.dumps(tools)}", flush=True)
 
         t0 = time.perf_counter()
+        exps = experiments_phase(tmp, Params)
+        exps["seconds"]["total"] = time.perf_counter() - t0
+        print(f"experiments: {json.dumps(exps['seconds'])}", flush=True)
+
+        t0 = time.perf_counter()
         ecp = ec_parity(tmp, Params, np)
         ecp["seconds"] = time.perf_counter() - t0
         print(f"EC parity: {json.dumps(ecp)}", flush=True)
@@ -2836,7 +3087,14 @@ def main() -> int:
            for leg, w in ec_legs.items()},
         **{f"sharded_mesh{n}": w["nthash_select_launches"]
            for n, w in sharded.items()},
-        multihost_main=mhm["nthash_select_launches"])
+        multihost_main=mhm["nthash_select_launches"],
+        **{f"quality_err{err}": leg["nthash_select_launches"]
+           for err, leg in exps["quality"]["legs"].items()},
+        **{f"scaling_mesh{r['n']}": r["nthash_select_launches"]
+           for r in exps["scaling"]["rows"] if "nthash_select_launches" in r},
+        scale_demo_parity=exps["scale_parity"]["nthash_select_launches"],
+        recovery=exps["recovery"][DEVICE]["nthash_select_launches"],
+        profiled_chunk=exps["profiled_chunk"]["nthash_select_launches"])
     rows[1]["launches_by_leg"] = {
         f"scheme_{leg}": w["syncmer_select_launches"]
         for leg, w in scheme.items()}

@@ -27,12 +27,9 @@ processes that MDBG_COORD, MDBG_NPROCS and MDBG_PROC_ID name
 TOOL is one of the JAX package's subcommands (tools/): to-basespace,
 gfa-asm, magic-simplify, simplify-meta, multik (which assembles on the card
 unless given --device cpu), gfa2fasta, break-loops, gfa-complete,
-hpc-compress, gfa-strip, extreme-simplify, synth-reads, ec-scale (on the
-card unless given --device cpu).
-
-The subcommand quality-n50 selects a path this port does not run yet: it
-fails with a "not ported yet" error naming ROADMAP.md instead of running
-something else.
+hpc-compress, gfa-strip, extreme-simplify, synth-reads, ec-scale and
+quality-n50 (both on the card unless given --device cpu).  Every command
+line of the JAX package runs here.
 """
 
 from __future__ import annotations
@@ -49,10 +46,11 @@ _TOOLS = (
     "to-basespace", "gfa-asm", "magic-simplify", "multik", "gfa2fasta",
     "break-loops", "simplify-meta", "gfa-complete", "hpc-compress",
     "gfa-strip", "extreme-simplify", "synth-reads", "ec-scale",
+    "quality-n50",
 )
 
-#: subcommands of the JAX package's CLI not ported yet
-_TOOLS_NOT_PORTED = ("quality-n50",)
+#: subcommands of the JAX package's CLI not ported yet: none
+_TOOLS_NOT_PORTED = ()
 
 
 def _engine(name: str) -> str:
@@ -66,8 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="rust_mdbg_tpu_torch",
         description="Minimizer-space de Bruijn graph (mdBG) assembler, "
                     "PyTorch/CUDA port.",
-        epilog="Subcommands: " + ", ".join(_TOOLS) + ".  Not ported yet: "
-               + ", ".join(_TOOLS_NOT_PORTED) + ".")
+        epilog="Subcommands: " + ", ".join(_TOOLS) + ".")
     p.add_argument("reads", help="input FASTA/FASTQ (.gz/.lz4 ok)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("-p", "--prefix", default=None)

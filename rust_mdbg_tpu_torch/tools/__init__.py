@@ -1,8 +1,7 @@
 """Pipeline tooling subcommands (the reference's second binary + utils/ scripts).
 
-Dispatch table for `python -m rust_mdbg_tpu_torch <tool> ...`.  The JAX
-package's `quality-n50` is not ported yet: the CLI refuses it before it
-gets here.
+Dispatch table for `python -m rust_mdbg_tpu_torch <tool> ...`: every
+subcommand of the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -51,6 +50,10 @@ def dispatch(name: str, argv: list[str]) -> int:
         return main(argv)
     if name == "ec-scale":
         from ..experiments.ec_scale import main
+
+        return main(argv)
+    if name == "quality-n50":
+        from ..experiments.quality_n50 import main
 
         return main(argv)
     if name == "extreme-simplify":

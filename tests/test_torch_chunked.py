@@ -261,9 +261,11 @@ def test_cli_rejects_unported_paths(tmp_path, reads, flag):
                                   "gfa-asm", "gfa2fasta", "ec-scale",
                                   "quality-n50"])
 def test_cli_rejects_tool_subcommands(tmp_path, reads, monkeypatch, tool):
-    """Of the JAX package's tool subcommands only quality-n50 is still
-    refused; the others run on a tiny assembly of `reads` (ec-scale on a
-    genome of its own)."""
+    """Every tool subcommand of the JAX package runs (the name is from the
+    slices that refused some): the assembly tools on a tiny assembly of
+    `reads`, ec-scale on a genome of its own, and quality-n50 with its
+    error-free leg at 1 Mbp x 4, whose record equals the JAX CLI's, the
+    leg's seconds, the RSS and the device aside."""
     if tool == "ec-scale":
         out = tmp_path / "ec.json"
         assert cli_main([tool, "--genome-mbp", "0.005", "--coverage", "6",
@@ -273,8 +275,24 @@ def test_cli_rejects_tool_subcommands(tmp_path, reads, monkeypatch, tool):
         assert '"ec_after_identity"' in out.read_text()
         return
     if tool == "quality-n50":
-        with pytest.raises(SystemExit, match=f"{tool} is not ported yet"):
-            cli_main([tool, "--gfa", "x.gfa"])
+        recs = {}
+        monkeypatch.setattr("sys.argv", ["pytest"])  # the JAX dispatch sets it
+        for side, main, extra in (("jax", jax_cli_main, []),
+                                  ("port", cli_main, ["--device", "cpu"])):
+            out = tmp_path / f"{side}.json"
+            main([tool, "--genome-mbp", "1", "--coverage", "4", "--errs",
+                  "0", "--workdir", str(tmp_path / side), "--out", str(out)]
+                 + extra)
+            recs[side] = json.loads(out.read_text())
+        for rec in recs.values():
+            for leg in rec["legs"]:
+                for key in ("synth_s", "asm_s", "msimpl_s"):
+                    leg.pop(key)
+            del rec["max_rss_gb"]
+        assert recs["port"].pop("device") == "cpu"
+        assert recs["port"].pop("card") is None
+        assert recs["port"] == recs["jax"]
+        assert recs["port"]["legs"][0]["n_contigs"] > 0
         return
     monkeypatch.chdir(tmp_path)
     assert cli_main([reads, "-k", "7", "-l", "12", "-d", "0.01",

@@ -8,6 +8,7 @@ experiments/synth.  The stand-in for the reference's example corpus
 seeded random 0.1 Mbp genome read the same way, assembled at the
 example's Params by both packages."""
 
+import json
 import os
 import random
 import re
@@ -432,6 +433,9 @@ def _tool_argv(tool, d):
         "ec-scale": ["--genome-mbp", "0.008", "--coverage", "10",
                      "--read-len", "1600", "--error-rate", "0.003",
                      "--workdir", "."],
+        # the record carries seconds: the files compared are the legs'
+        "quality-n50": ["--genome-mbp", "1", "--coverage", "3", "--errs",
+                        "0.003", "--workdir", ".", "--out", os.devnull],
     }[tool]
 
 
@@ -453,15 +457,17 @@ def tool_inputs(example, tmp_path_factory):
 
 @pytest.mark.parametrize("tool", cli._TOOLS)
 def test_cli_tool_matches_jax(tmp_path, tool_inputs, monkeypatch, tool):
-    """`python -m rust_mdbg_tpu_torch TOOL ...` runs the port's tool (multik
-    and ec-scale with --device cpu) and leaves the same files, byte for
-    byte, as `python -m rust_mdbg_tpu TOOL ...` (multik with --engine host)
-    on the same inputs."""
+    """`python -m rust_mdbg_tpu_torch TOOL ...` runs the port's tool
+    (multik, ec-scale and quality-n50 with --device cpu) and leaves the
+    same files, byte for byte, as `python -m rust_mdbg_tpu TOOL ...`
+    (multik with --engine host) on the same inputs."""
     monkeypatch.setenv("HOME", str(tmp_path))  # the JAX compile cache
+    monkeypatch.setattr("sys.argv", ["pytest"])  # the JAX quality-n50 sets it
     made = {}
     cpu = ["--device", "cpu"]
     for side, main, extra in (("port", cli.main,
-                               {"multik": cpu, "ec-scale": cpu}),
+                               {"multik": cpu, "ec-scale": cpu,
+                                "quality-n50": cpu}),
                               ("jax", jax_cli.main,
                                {"multik": ["--engine", "host"]})):
         d = tmp_path / side
@@ -469,7 +475,9 @@ def test_cli_tool_matches_jax(tmp_path, tool_inputs, monkeypatch, tool):
         before = set(os.listdir(d))
         monkeypatch.chdir(d)
         argv = [tool] + _tool_argv(tool, d)
-        assert main(argv + extra.get(tool, [])) == 0
+        rc = main(argv + extra.get(tool, []))
+        # the JAX dispatch returns quality-n50's main(), which returns None
+        assert rc == 0 or (side, tool, rc) == ("jax", "quality-n50", None)
         made[side] = {f: (d / f).read_bytes()
                       for f in sorted(set(os.listdir(d)) - before)}
     assert made["port"] and made["port"] == made["jax"]
@@ -477,22 +485,41 @@ def test_cli_tool_matches_jax(tmp_path, tool_inputs, monkeypatch, tool):
 
 @pytest.mark.parametrize("tool", ["ec-scale", "quality-n50"])
 def test_cli_refuses_unported_tools(tool, tmp_path, monkeypatch):
-    """quality-n50 is still refused.  The name is from the slices before
-    error correction: ec-scale now runs (its report is held against the
-    JAX package's in test_torch_ec_cli.py::test_ec_scale_matches_jax),
-    and what it still refuses is a run without a card when no --device
-    is named: the CPU is taken only when asked for, before any input is
-    generated."""
-    if tool == "quality-n50":
-        with pytest.raises(SystemExit, match=f"{tool} is not ported yet"):
-            cli.main([tool])
+    """The name is from the slices before these subcommands ran.  Both run
+    now (ec-scale's report is held against the JAX package's in
+    test_torch_ec_cli.py::test_ec_scale_matches_jax); what each still
+    refuses is a run without a card when no --device is named: the CPU is
+    taken only when asked for, before any input is generated.  quality-n50
+    then runs at 1 Mbp x 5 with --device cpu, and its record equals the
+    JAX CLI's on the same arguments, the legs' seconds, the RSS and the
+    device aside."""
+    if tool == "ec-scale":
+        argv = [tool, "--genome-mbp", "0.008", "--coverage", "10"]
+    else:
+        argv = [tool, "--genome-mbp", "1", "--coverage", "5", "--errs",
+                "0.003"]
+    work, out = tmp_path / "w", tmp_path / "r.json"
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv + ["--workdir", str(work), "--out", str(out)])
+    assert not work.exists() and not out.exists()
+    if tool == "ec-scale":
         return
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    work = tmp_path / "w"
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main([tool, "--genome-mbp", "0.008", "--coverage", "10",
-                  "--workdir", str(work), "--out", str(tmp_path / "r.json")])
-    assert not work.exists() and not (tmp_path / "r.json").exists()
+    recs = {}
+    monkeypatch.setattr("sys.argv", ["pytest"])  # the JAX dispatch sets it
+    for side, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        out = tmp_path / f"{side}.json"
+        main(argv + ["--workdir", str(tmp_path / side), "--out", str(out)]
+             + extra)
+        recs[side] = json.loads(out.read_text())
+    assert recs["port"]["protocol"] == recs["jax"]["protocol"]
+    legs = [[{k: v for k, v in leg.items()
+              if k not in ("synth_s", "asm_s", "msimpl_s")}
+             for leg in recs[side]["legs"]] for side in ("jax", "port")]
+    assert legs[0] == legs[1] and legs[0][0]["nodes"] > 0
+    assert recs["port"]["device"] == "cpu"
 
 
 def test_port_sources_import_no_jax():
