@@ -150,7 +150,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     (e) the relay_diag loops (RSS after each of 8 copies of 100 MB: H2D
     from pageable and from pinned memory, D2H); (f) one chunk inside
     PhaseTimer.phase(..., profile_dir=...), whose trace must hold the
-    nthash_select kernel.
+    nthash_select kernel; then nthash_select against its plain version
+    at every (l, hash bound, rows, width) these parts launched it at on
+    the card (recorded in-process by NthashShapes, and the scaling
+    processes' `staged_shapes`).
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -219,7 +222,7 @@ def _nthash_batch(np, seed: int, B: int, L: int, l: int):
     codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
     codes[rng.random((B, L)) < 0.001] = 4
     lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
-    lengths[:4] = [0, 1, min(max(0, l - 1), L), L]
+    lengths[:4] = [0, 1, min(max(0, l - 1), L), L][:B]
     codes[np.arange(L)[None, :] >= lengths[:, None]] = 4
     codes[-1, -7:] = 5
     for t0 in range(4096, L, 4096):
@@ -241,7 +244,7 @@ def check_nthash_select(torch, np, hash_bound: int) -> dict:
 
     dev = torch.device("cuda")
     cases = {}
-    small = [((24, 12291), l, 0) for l in (1, 13, 14, 31, 32, 64)]
+    small = [((24, 12291), l, 0) for l in (1, 12, 13, 14, 31, 32, 64)]
     small += [((25, 12291), 14, 3), ((25, 4099), 64, 3), ((9, 37), 14, 0),
               ((9, 37), 64, 0), ((16, 5008), 31, 0),
               # the long-sequence tiler's shape (ops/extract)
@@ -1906,24 +1909,90 @@ def profiled_chunk(tmp: str, Params) -> dict:
     return rec
 
 
+class NthashShapes:
+    """While entered, records the [rows, width], l and hash bound of every
+    nthash_select launch on the card through ops/extract (the port's one
+    caller of the wrapper), so that the kernel can be held against its
+    plain version at the shapes a phase really ran.  The launch count
+    stays the wrapper's own."""
+
+    def __init__(self):
+        self.seen = set()  # (l, hash_bound, rows, width)
+
+    def __enter__(self):
+        from rust_mdbg_tpu_torch.ops import extract
+
+        self._orig = orig = extract.nthash_select
+
+        def recorded(codes, l, hash_bound, *rest):
+            if codes.is_cuda:
+                self.seen.add((int(l), int(hash_bound), *codes.shape))
+            return orig(codes, l, hash_bound, *rest)
+
+        extract.nthash_select = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from rust_mdbg_tpu_torch.ops import extract
+
+        extract.nthash_select = self._orig
+
+
+def check_nthash_seen(torch, np, seen) -> dict:
+    """check_nthash_at at every (l, hash_bound, rows, width) in `seen`, on
+    DEVICE: mismatches by case."""
+    cases = {}
+    for l, hb in sorted({(l, hb) for l, hb, _, _ in seen}):
+        shapes = sorted((B, L) for l2, hb2, B, L in seen
+                        if (l2, hb2) == (l, hb))
+        got = check_nthash_at(torch, np, hb, shapes, [torch.device(DEVICE)],
+                              l=l)
+        cases.update({f"{k} bound={hb}": v for k, v in got.items()})
+    return cases
+
+
 def experiments_phase(tmp: str, Params, quality_mbp: int = QUALITY_GENOME_MBP
                       ) -> dict:
     """Phase 17: (a) quality-n50, (b) scaling, (c) scale_demo's parity
     check, (d) recovery_grid, (e) the relay_diag loops, (f) the profiler
-    hook; each part's seconds in `seconds`."""
-    from rust_mdbg_tpu_torch.experiments import relay_diag
+    hook; each part's seconds in `seconds`.  Then nthash_select against
+    its plain version at every shape the parts launched it at (the
+    in-process launches, and the scaling processes' staged shapes):
+    `nthash_select_cases`."""
+    import numpy as np
+    import torch
+
+    from rust_mdbg_tpu_torch.experiments import relay_diag, scaling
 
     out, seconds = {}, {}
-    for name, fn in (("quality", lambda: quality_phase(tmp, quality_mbp)),
-                     ("scaling", lambda: scaling_phase(tmp)),
-                     ("scale_parity", lambda: parity_check_phase(tmp)),
-                     ("recovery", lambda: recovery_phase(tmp)),
-                     ("relay_diag", lambda: relay_diag.run(DEVICE)),
-                     ("profiled_chunk", lambda: profiled_chunk(tmp, Params))):
-        t0 = time.perf_counter()
-        out[name] = fn()
-        seconds[name] = time.perf_counter() - t0
-        print(f"experiments {name}: {json.dumps(out[name])}", flush=True)
+    with NthashShapes() as log:
+        for name, fn in (
+                ("quality", lambda: quality_phase(tmp, quality_mbp)),
+                ("scaling", lambda: scaling_phase(tmp)),
+                ("scale_parity", lambda: parity_check_phase(tmp)),
+                ("recovery", lambda: recovery_phase(tmp)),
+                ("relay_diag", lambda: relay_diag.run(DEVICE)),
+                ("profiled_chunk", lambda: profiled_chunk(tmp, Params))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+            print(f"experiments {name}: {json.dumps(out[name])}", flush=True)
+    seen = set(log.seen)
+    if DEVICE == "cuda":
+        p = scaling.scaling_params(16)
+        seen |= {(p.l, p.hash_bound, B, L) for r in out["scaling"]["rows"]
+                 for B, L in r.get("staged_shapes", ())}
+        if not seen:
+            raise SystemExit("experiments: no nthash_select shape recorded")
+    t0 = time.perf_counter()
+    cases = check_nthash_seen(torch, np, seen)
+    seconds["nthash_select_check"] = time.perf_counter() - t0
+    print(f"nthash_select at the experiments' shapes: {json.dumps(cases)}",
+          flush=True)
+    if sum(cases.values()):
+        raise SystemExit(f"nthash_select: {sum(cases.values())} mismatches "
+                         "at the experiments' shapes")
+    out["nthash_select_cases"] = cases
     out["seconds"] = seconds
     return out
 
@@ -3023,6 +3092,7 @@ def main() -> int:
         exps = experiments_phase(tmp, Params)
         exps["seconds"]["total"] = time.perf_counter() - t0
         print(f"experiments: {json.dumps(exps['seconds'])}", flush=True)
+        rows[0]["cases"].update(exps["nthash_select_cases"])
 
         t0 = time.perf_counter()
         ecp = ec_parity(tmp, Params, np)

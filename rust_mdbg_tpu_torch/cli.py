@@ -28,8 +28,9 @@ TOOL is one of the JAX package's subcommands (tools/): to-basespace,
 gfa-asm, magic-simplify, simplify-meta, multik (which assembles on the card
 unless given --device cpu), gfa2fasta, break-loops, gfa-complete,
 hpc-compress, gfa-strip, extreme-simplify, synth-reads, ec-scale and
-quality-n50 (both on the card unless given --device cpu).  Every command
-line of the JAX package runs here.
+quality-n50 (both on the card unless given --device cpu).  Every
+subcommand of the JAX package is dispatched (tools.dispatch), so every
+command line of the JAX package runs here.
 """
 
 from __future__ import annotations
@@ -48,9 +49,6 @@ _TOOLS = (
     "gfa-strip", "extreme-simplify", "synth-reads", "ec-scale",
     "quality-n50",
 )
-
-#: subcommands of the JAX package's CLI not ported yet: none
-_TOOLS_NOT_PORTED = ()
 
 
 def _engine(name: str) -> str:
@@ -181,9 +179,6 @@ def main(argv=None):
         from .tools import dispatch
 
         return dispatch(argv[0], argv[1:])
-    if argv and argv[0] in _TOOLS_NOT_PORTED:
-        raise SystemExit(
-            f"error: {argv[0]} is not ported yet (see ROADMAP.md)")
     args = build_parser().parse_args(argv)
     if not os.path.exists(args.reads):
         print(f"error: input reads file not found: {args.reads}",

@@ -13,7 +13,6 @@ flat, the card's copies retain nothing, and scale_demo's `max_rss_gb` is
 the pipeline's own footprint.
 
 Run: python -m rust_mdbg_tpu_torch.experiments.relay_diag [--device cpu]
-         [--mb 100] [--iters 8]
 """
 
 from __future__ import annotations
@@ -92,10 +91,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="relay_diag")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain torch versions)")
-    ap.add_argument("--mb", type=int, default=100)
-    ap.add_argument("--iters", type=int, default=8)
     a = ap.parse_args(argv)
-    print(json.dumps(run(a.device, a.mb, a.iters)))
+    print(json.dumps(run(a.device)))
     return 0
 
 

@@ -88,7 +88,8 @@ def _free_port() -> int:
 
 def multihost_worker(reads: str, device: str) -> int:
     """One process of run_multihost: joins the group the MDBG_* variables
-    name, assembles twice (cold, warm) and prints its walls and graph."""
+    name, assembles twice (cold, warm) and prints its walls, graph and the
+    [rows, width] its extraction steps ran at."""
     from ..parallel.multihost import (assemble_multihost, close_distributed,
                                       init_distributed)
 
@@ -103,13 +104,15 @@ def multihost_worker(reads: str, device: str) -> int:
     close_distributed()
     print("WALLS", round(t1 - t0, 2), round(t2 - t1, 2))
     print("NODES", stats.get("nb_nodes"), "EDGES", stats.get("nb_edges"))
+    print("SHAPES", json.dumps(stats["staged_shapes"]))
     return 0
 
 
 def run_multihost(reads: str, device=None, timeout: float = 1800) -> dict:
     """Two processes over torch.distributed (gloo), each assembling twice
     in the same process: the second run is the warm wall, comparable to
-    the mesh rows'.  Raises when a process fails."""
+    the mesh rows'.  `staged_shapes` holds every [rows, width] the
+    processes' extraction steps ran at.  Raises when a process fails."""
     procs = []
     coord = f"127.0.0.1:{_free_port()}"
     for pid in range(2):
@@ -133,14 +136,18 @@ def run_multihost(reads: str, device=None, timeout: float = 1800) -> dict:
             raise RuntimeError(f"multihost process failed:\n{out[-1500:]}")
     nodes = edges = -1
     cold = warm = None
+    shapes = set()
     for out in outs:
         for line in out.splitlines():
             if line.startswith("NODES") and "None" not in line:
                 nodes, edges = int(line.split()[1]), int(line.split()[3])
             if line.startswith("WALLS"):
                 cold, warm = float(line.split()[1]), float(line.split()[2])
+            if line.startswith("SHAPES"):
+                shapes |= {tuple(x) for x in json.loads(line[len("SHAPES"):])}
     return dict(n="2 processes", wall_s=warm, wall_cold_s=cold,
-                nodes=nodes, edges=edges)
+                nodes=nodes, edges=edges,
+                staged_shapes=[list(x) for x in sorted(shapes)])
 
 
 def table(rows: list, total: int, device: str, card: str | None) -> str:

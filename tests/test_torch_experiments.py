@@ -255,11 +255,14 @@ def test_scaling_meshes_match_jax(scaling_reads, tmp_path):
 
 def test_scaling_multihost_matches_meshes(scaling_reads):
     """run_multihost: two gloo processes of the port, each assembling
-    twice; the graph equals the single-process mesh's."""
+    twice; the graph equals the single-process mesh's, and the processes'
+    staged [rows, width] are returned (16 reads a round, 8 a process)."""
     mh = scaling.run_multihost(scaling_reads, device="cpu", timeout=300)
     one = scaling.run_mesh(scaling_reads, 1, device="cpu")
     assert (mh["nodes"], mh["edges"]) == (one["nodes"], one["edges"])
     assert mh["wall_s"] is not None and mh["wall_cold_s"] is not None
+    assert mh["staged_shapes"] and all(
+        B == 8 and L > 0 for B, L in mh["staged_shapes"])
 
 
 def test_phase_timer_profile_dir_writes_a_trace(tmp_path):
