@@ -154,6 +154,19 @@ Phases (any failure exits non-zero, and no result line is printed):
     at every (l, hash bound, rows, width) these parts launched it at on
     the card (recorded in-process by NthashShapes, and the scaling
     processes' `staged_shapes`).
+18. the benchmark entry (rust_mdbg_tpu_torch/bench.py, the port's
+    bench.py; run last): (a) bench.py's corpus (20 Mbp genome, 52x of
+    24,576 bp reads, 1.038 Gbp, staged on the card) through the module's
+    functions, a warm-up and one timed rep, the device loop, the link
+    rate, the packed feed and the chunked driver over the same reads as
+    FASTA; the JSON line printed, its nodes, edges, windows and unique
+    keys equal to the JAX package's on the same corpus (BENCH_r03-r05),
+    the bench's graph equal to the chunked driver's (gfa_signature); (b)
+    the --bf mode (2^32-bit Bloom filter, window slots scaled by
+    MDBG_BF_SLOT_FRAC, default 0.5) on a 5 Mbp genome at 52x: every read
+    within its slots and the graph equal to the chunked driver's with
+    --bf; then nthash_select against its plain version at every shape
+    the phase launched it at, [128, 24576] among them.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -614,6 +627,7 @@ def construct_breakdown(tmp: str, Params) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from rust_mdbg_tpu_torch.bench import short_kernel_name
     from rust_mdbg_tpu_torch.core.chunked import (construct_chunk,
                                                   host_feed, new_counter,
                                                   plan_chunks, to_device)
@@ -687,7 +701,8 @@ def construct_breakdown(tmp: str, Params) -> dict:
         busy_share_unprofiled=busy / unprofiled_us if spans else None,
         nthash_select_us=sum(t for k, (t, _) in by_name.items()
                              if "nthash_select" in k),
-        top=[dict(name=_short(k), us=t, calls=c) for k, (t, c) in top],
+        top=[dict(name=short_kernel_name(k), us=t, calls=c)
+             for k, (t, c) in top],
         top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
 
 
@@ -2953,11 +2968,107 @@ def four_card_phase(tmp: str, Params, np) -> dict:
     return out
 
 
-def _short(kernel: str) -> str:
-    for junk in ("void ", "at::native::", "(anonymous namespace)::",
-                 "at::cuda::detail::"):
-        kernel = kernel.replace(junk, "")
-    return kernel[:120]
+# --- the benchmark entry (rust_mdbg_tpu_torch/bench.py) ---------------------
+
+#: nodes, edges, windows and unique keys of bench.py's corpus: the JAX
+#: package's output on the same seeded reads (BENCH_r03, r04, r05)
+BENCH_COUNTS = dict(nodes=245_869, edges=469_112, windows=1_299_837,
+                    uniques=4_408_813)
+BENCH_TOTAL_GBP = 1.038
+#: the --bf leg's genome: at 52x it gives the full corpus's survival share
+BENCH_BF_GENOME_MBP = 5
+
+
+def bench_leg(tmp: str, leg: str, genome_mbp: int, use_bf: bool) -> dict:
+    """The bench's protocol through the module's functions, with a warm-up
+    and one timed rep, then the device loop, the link, the packed feed and
+    the chunked driver over the same reads: the JSON line, the bench's
+    graph against the chunked driver's (gfa_signature), and the launches
+    of both kernels over the protocol (counts set to 0 just before)."""
+    import torch
+
+    from rust_mdbg_tpu_torch import bench
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    b = bench.Bench(DEVICE, genome_mbp=genome_mbp,
+                    workdir=os.path.join(tmp, f"bench_{leg}"), use_bf=use_bf)
+    setup_s = time.perf_counter() - t0
+    kernels.nthash_select.launches = 0
+    kernels.syncmer_select.launches = 0
+    t0 = time.perf_counter()
+    res = bench.run_protocol(b, repeats=1, pipelined=True)
+    seconds = time.perf_counter() - t0
+    launches = kernels.nthash_select.launches
+    line = res["line"]
+    print(f"bench ({leg}): {json.dumps(line)}", flush=True)
+    if launches <= 0 or kernels.syncmer_select.launches:
+        raise SystemExit(f"bench ({leg}): nthash_select launched {launches} "
+                         f"times, syncmer_select "
+                         f"{kernels.syncmer_select.launches}")
+    sig = gfa_signature(b.prefix)
+    if sig != gfa_signature(os.path.join(b.workdir, "pipe")):
+        raise SystemExit(f"bench ({leg}): the bench's graph differs from "
+                         "the chunked driver's on the same reads")
+    best, pipe = res["best"], res["pipe_stats"]
+    if len(sig[0]) != line["nodes"] or sig[1] != line["edges"] \
+            or line["nodes"] <= 0:
+        raise SystemExit(f"bench ({leg}): the .gfa holds {len(sig[0])} "
+                         f"nodes, {sig[1]} edges against {line}")
+    out = dict(line=line, setup_s=setup_s, protocol_s=seconds,
+               stages=best["stages"], edge_join=best["edge_join"],
+               n_over=best["n_over"],
+               n_batches=b.n_batches, w_slot=b.W_slot,
+               slot_frac=b.slot_frac, pipe_phases=pipe["phases"],
+               pipe_nodes=pipe["nb_nodes"], pipe_edges=pipe["nb_edges"],
+               nthash_select_launches=launches)
+    del b, res
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_phase(tmp: str) -> dict:
+    """Phase 18: (a) bench.py's corpus (1.038 Gbp) through the port's
+    bench, its counts equal to the JAX package's and its graph to the
+    chunked driver's; (b) the --bf mode (MDBG_BF_SLOT_FRAC's slots, 0.5
+    unless set) on a 5 Mbp genome at 52x, every read within its slots and
+    the graph equal to the chunked driver's with --bf; then nthash_select
+    against its plain version at every shape the phase launched it at,
+    [128, 24576] among them."""
+    import numpy as np
+    import torch
+
+    from rust_mdbg_tpu_torch.params import Params
+
+    out = {}
+    with NthashShapes() as log:
+        for leg, mbp, bf in (("main", 20, False),
+                             ("bf", BENCH_BF_GENOME_MBP, True)):
+            out[leg] = bench_leg(tmp, leg, mbp, bf)
+            print(f"bench {leg}: " + json.dumps(
+                {k: v for k, v in out[leg].items() if k != "line"}),
+                flush=True)
+    line = out["main"]["line"]
+    got = {k: line[k] for k in BENCH_COUNTS}
+    if got != BENCH_COUNTS or line["total_gbp"] != BENCH_TOTAL_GBP:
+        raise SystemExit(f"bench: {got}, {line['total_gbp']} Gbp against "
+                         f"{BENCH_COUNTS}, {BENCH_TOTAL_GBP}")
+    if out["bf"]["slot_frac"] is None:
+        raise SystemExit("bench (bf): the window slots were not scaled")
+    seen = set(log.seen)
+    hb = Params(k=21, l=14, density=0.003).hash_bound
+    if DEVICE == "cuda" and (14, hb, 128, 24576) not in seen:
+        raise SystemExit(f"bench: nthash_select never ran at [128, 24576]: "
+                         f"{sorted(seen)}")
+    cases = check_nthash_seen(torch, np, seen)
+    print(f"nthash_select at the bench's shapes: {json.dumps(cases)}",
+          flush=True)
+    if sum(cases.values()):
+        raise SystemExit(f"nthash_select: {sum(cases.values())} mismatches "
+                         "at the bench's shapes")
+    out["nthash_select_cases"] = cases
+    return out
 
 
 def main() -> int:
@@ -3143,6 +3254,11 @@ def main() -> int:
         if rows[0]["mismatches"]:
             raise SystemExit(f"nthash_select: {sum(cases.values())} "
                              "mismatches at the sharded legs' shapes")
+
+        t0 = time.perf_counter()
+        bp = bench_phase(tmp)
+        print(f"bench phase: {time.perf_counter() - t0:.3f} s", flush=True)
+        rows[0]["cases"].update(bp["nthash_select_cases"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3164,7 +3280,9 @@ def main() -> int:
            for r in exps["scaling"]["rows"] if "nthash_select_launches" in r},
         scale_demo_parity=exps["scale_parity"]["nthash_select_launches"],
         recovery=exps["recovery"][DEVICE]["nthash_select_launches"],
-        profiled_chunk=exps["profiled_chunk"]["nthash_select_launches"])
+        profiled_chunk=exps["profiled_chunk"]["nthash_select_launches"],
+        **{f"bench_{leg}": bp[leg]["nthash_select_launches"]
+           for leg in ("main", "bf")})
     rows[1]["launches_by_leg"] = {
         f"scheme_{leg}": w["syncmer_select_launches"]
         for leg, w in scheme.items()}

@@ -112,6 +112,7 @@ class LazyNodes:
                  want_gk: bool = True, chunk_rows: int = 16384):
         self._out = out
         self.n_pass = out["n_pass"]
+        self.n_unique = out.get("n_unique")  # distinct keys the reduction saw
         self.row_lo = row_lo
         self.n_new = self.n_pass - row_lo
         self.chunk_rows = chunk_rows
