@@ -21,7 +21,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    from 1 to 64, odd L, an unaligned row slice, edge rows, N and code 5 in
    the tile halos; syncmer_select: s = 0, l = 32, w = 1, odd L, B = 1, L
    below w, an unaligned row slice, and rows of one base, short repeats
-   and two-letter noise where the incumbent walk's fix-up runs long);
+   and two-letter noise where the incumbent walk's fix-up runs long;
+   compact_minimizers: the main path's [512, 24576] on nthash_select's
+   selection and on adversarial rows (none selected, every column, a
+   chunk over its capacity, C + 1 in one chunk so that the slots past the
+   kept minimizers read column L - 1, the last column alone), the bench's
+   [128, 24576], the sharded [256, 24576], M = 4,192 under --syncmers,
+   the tiler's [8, 1049088], odd L, an unaligned row slice, nch * C < M
+   and M == L; window_keys: both modes, the keys plane and the slot
+   append with its counters, at the main path's [512, 256], the bench's
+   [128, 256], M = 4,192, odd M, k = 1, 2, 7, 21, a slot too small for
+   the batch and window coordinates past 2^32 before their u32 mask.
+   The two construct kernels are timed as bare launches queued behind a
+   spin kernel (their device time), as bare launches and through their
+   wrappers);
 3. slice parity: a small synthetic corpus through the port on "cuda" and on
    "cpu" — the .gfa must be byte-identical and the .sequences records equal;
    then the same corpus as pre-HPC'd input (reads_already_hpc=True,
@@ -35,11 +48,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    as raw reads (vector mode) and as pre-HPC'd reads (bench.py's own
    configuration: recompute mode, the device key catalog and the device
    edge join).  Kernel launch counts are set to 0 just before each leg and
-   read just after; every kernel of the path must have launched in each;
+   read just after; every kernel of the path must have launched in each
+   (nthash_select, compact_minimizers and window_keys);
 5. the construct breakdown: torch.profiler over one chunk of that corpus
    (construct_batches + finalize_chunk, after a warm-up), device time by
-   kernel name, and the device's busy time over the profiled window and
-   over the same chunk's unprofiled wall time;
+   kernel name, kernel launches a batch, and the device's busy time over
+   the profiled window and over the same chunk's unprofiled wall time;
 6. whole-run parity: the parity corpus through `assemble_device_table` on
    "cuda" and on "cpu" as raw reads, as pre-HPC'd reads (in batches of 16
    reads, so that enough chunks flow for phase 1 to fire) and as pre-HPC'd
@@ -74,7 +88,9 @@ Phases (any failure exits non-zero, and no result line is printed):
     with its re-plans or route: a read three times the sampled length after
     read 100 (chunked and whole run), a forced small minimizer capacity
     (chunked and whole run), an over-budget run at minabund 17 (streaming,
-    density and syncmers);
+    density and syncmers), and a chunk re-planned until its minimizer
+    slots equal its staged width (M == L == 4,096: the compaction's flat
+    branch at a two-level width, seen on the card);
 12. the syncmer breakdown: torch.profiler over one [512, 24576] batch of
     the count-path extraction under --syncmers, device time by torch op
     and the fused kernel's share;
@@ -166,7 +182,11 @@ Phases (any failure exits non-zero, and no result line is printed):
     MDBG_BF_SLOT_FRAC, default 0.5) on a 5 Mbp genome at 52x: every read
     within its slots and the graph equal to the chunked driver's with
     --bf; then nthash_select against its plain version at every shape
-    the phase launched it at, [128, 24576] among them.
+    the phase launched it at, [128, 24576] among them.  The main leg
+    traces one more rep: its kernel launches, launches a batch, busy time
+    and top kernels.  compact_minimizers and window_keys launch on every
+    chunked, whole-run and bench leg, the compaction alone on the sharded
+    and streaming legs (the kernels line's launches_by_leg).
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.  Generated inputs and outputs
@@ -446,6 +466,343 @@ def check_syncmer_select(torch, np) -> dict:
         selected=n_sel, cases=cases)
 
 
+# --- the construct body's kernels (compaction, window keys) -----------------
+
+#: the construct body's two kernels, counted on every leg that runs it
+CONSTRUCT_KERNELS = ("compact_minimizers", "window_keys")
+
+
+def zero_construct_launches():
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    for name in CONSTRUCT_KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+def construct_launches() -> dict:
+    from rust_mdbg_tpu_torch.ops import kernels
+
+    return {name: getattr(kernels, name).launches
+            for name in CONSTRUCT_KERNELS}
+
+
+class CompactShapes:
+    """Records (rows, width, M, device type) of every compaction the
+    extraction launches inside the block: ops.extract.compact_minimizers
+    wrapped, the kernels' own counts untouched."""
+
+    def __enter__(self):
+        from rust_mdbg_tpu_torch.ops import extract
+
+        self._orig = orig = extract.compact_minimizers
+        self.seen = []
+
+        def record(sel, *args, M, **kw):
+            self.seen.append((int(sel.shape[0]), int(sel.shape[1]), M,
+                              sel.device.type))
+            return orig(sel, *args, M=M, **kw)
+
+        extract.compact_minimizers = record
+        return self
+
+    def __exit__(self, *exc):
+        from rust_mdbg_tpu_torch.ops import extract
+
+        extract.compact_minimizers = self._orig
+
+
+def require_construct(what: str, counts: dict, names) -> None:
+    """Fail the leg when a construct kernel it runs never launched (on the
+    card; a rehearsal on the CPU runs the plain versions)."""
+    missing = [n for n in names if counts[n] <= 0]
+    if DEVICE == "cuda" and missing:
+        raise SystemExit(f"{what}: {', '.join(missing)} never launched "
+                         f"({counts})")
+
+
+def queued_kernel_ms(torch, fn, iters: int) -> float:
+    """Device time of one call of fn (a bare launch): the `iters` launches
+    are queued behind a spin kernel (torch.cuda._sleep) and timed by CUDA
+    events once the card reaches them, so they run back to back and the
+    host's enqueue of each (longer than a kernel of a few microseconds)
+    is not in the time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the enqueue
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def _max_abs_err(np, got, want) -> float:
+    """The largest |kernel - plain| over the entries that differ, as
+    unsigned 64-bit values for int64 tensors."""
+    bad = got != want
+    if not bool(bad.any()):
+        return 0.0
+    g, w = got[bad].cpu().numpy(), want[bad].cpu().numpy()
+    if g.dtype == np.int64:
+        g, w = g.view(np.uint64), w.view(np.uint64)
+    return float(max(abs(int(a) - int(b)) for a, b in zip(g, w)))
+
+
+def _compare(np, got, want) -> tuple[int, float]:
+    """(mismatching entries, max_abs_err) over tuples of tensors (None
+    where both lack one)."""
+    n, err = 0, 0.0
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            n += (g is None) != (w is None)
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            n += max(g.numel(), w.numel())
+            continue
+        n += int((g != w).sum())
+        err = max(err, _max_abs_err(np, g, w))
+    return n, err
+
+
+def _compact_inputs(torch, np, seed: int, B: int, L: int, rate: float, C: int,
+                    maps: bool):
+    """A selection plane at `rate` with adversarial rows (none selected;
+    every column, so every chunk over C and n_raw = L; the first chunk
+    full, its row over C there with n_raw above M; C + 1 in one chunk and
+    nothing else, so slot C reads column L - 1 with n_min = C + 1; only the
+    last column; every 7th column), canon over the whole u64 range (at and
+    above 2^63), and random pos_map / pme when `maps`: CUDA tensors."""
+    rng = np.random.default_rng(seed)
+    sel = rng.random((B, L)) < rate
+    if B >= 8:
+        sel[0] = False
+        sel[1] = True
+        sel[2, : min(L, 512)] = True
+        sel[3] = False
+        c0 = min(3, (L - 1) // 512) * 512
+        sel[3, c0 : c0 + min(C + 1, L - c0)] = True
+        sel[4] = False
+        sel[4, -1] = True
+        sel[5, ::7] = True
+    canon = rng.integers(0, 1 << 64, (B, L), dtype=np.uint64).view(np.int64)
+    out = [torch.from_numpy(sel).cuda(), torch.from_numpy(canon).cuda()]
+    if maps:
+        pos = rng.integers(0, 1 << 30, (B, L)).astype(np.int32)
+        out += [torch.from_numpy(pos).cuda(),
+                torch.from_numpy(pos + rng.integers(0, 90, (B, L)).astype(
+                    np.int32)).cuda()]
+    else:
+        out += [None, None]
+    return out
+
+
+def check_compact_minimizers(torch, np, hash_bound: int) -> dict:
+    """The compaction kernel vs its plain version, every output exactly, at
+    the shapes its legs give it: the main path's [512, 24576] (M = 256,
+    raw: positions and extent ends; the selection of nthash_select on
+    _nthash_batch's codes, timed, and a batch of adversarial rows), the
+    bench's [128, 24576] and the sharded legs' [256, 24576], M = 4,192
+    under --syncmers, the tiler's [8, 1049088], odd L and an unaligned row
+    slice, nch * C < M, and M == L at a two-level width (a chunk
+    re-planned by core/chunked.doubled_plan) and at odd L."""
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.ops.extract import capacity
+    from rust_mdbg_tpu_torch.params import Params
+
+    p = Params(k=21, l=14, density=0.003)
+    C = kernels.chunk_slot_capacity(hash_bound)
+    kw = dict(hash_bound=hash_bound)
+    cases = {}
+    shapes = [("bench", 128, 24576, 256, False, 0),
+              ("sharded", 256, 24576, 256, True, 0),
+              ("syncmers", 512, 24576, 4192, True, 0),
+              ("tiler", 8, 1_049_088,
+               capacity(p, 1_049_088, ignore_override=True), False, 0),
+              ("odd_L", 25, 6147, capacity(p, 6147), True, 0),
+              ("odd_L_rows_3:", 25, 6147, capacity(p, 6147), True, 3),
+              ("nch_C_below_M", 16, 3072, 2048, True, 0),
+              ("M_eq_L_two_level_width", 16, 4096, 4096, True, 0),
+              ("M_eq_L_odd", 9, 1027, 1027, False, 0)]
+    for seed, (name, B, L, M, maps, skip) in enumerate(shapes):
+        args = [None if a is None else a[skip:] for a in _compact_inputs(
+            torch, np, 40 + seed, B, L, 0.006, C, maps)]
+        got = kernels.compact_minimizers(*args, M=M, **kw)
+        want = kernels.compact_minimizers_plain(*args, M=M, **kw)
+        cases[f"{name} [{B - skip}, {L}] M={M}"] = _compare(np, got, want)[0]
+
+    B, L, M = 512, 24576, capacity(p, 24576)
+    adv = _compact_inputs(torch, np, 5, B, L, 0.006, C, True)
+    cases[f"adversarial [{B}, {L}] M={M}"] = _compare(
+        np, kernels.compact_minimizers(*adv, M=M, **kw),
+        kernels.compact_minimizers_plain(*adv, M=M, **kw))[0]
+    del adv
+    codes, lengths = _nthash_batch(np, 7, B, L, 14)
+    canon, sel = kernels.nthash_select(torch.from_numpy(codes).cuda(), 14,
+                                       hash_bound,
+                                       torch.from_numpy(lengths).cuda())
+    _, _, pos, pme = _compact_inputs(torch, np, 6, B, L, 0.0, C, True)
+    args = (sel, canon, pos, pme)
+    want = kernels.compact_minimizers_plain(*args, M=M, **kw)
+    got = kernels.compact_minimizers(*args, M=M, **kw)
+    torch.cuda.synchronize()
+    main_mismatches, max_abs_err = _compare(np, got, want)
+    n_min = got[3]
+    n_gathered = int(n_min.sum())
+    launch, _ = kernels.compact_minimizers_launcher(*args, M=M, **kw)
+    ms = queued_kernel_ms(torch, launch, 50)
+    launch_ms = cuda_time_ms(launch, 50)
+    wrapper_ms = cuda_time_ms(
+        lambda: kernels.compact_minimizers(*args, M=M, **kw), 50)
+    plain_ms = cuda_time_ms(
+        lambda: kernels.compact_minimizers_plain(*args, M=M, **kw), 5)
+    # least time: the selection read once (1 B a position), canon, pos_map
+    # and pme read only at the n_min columns gathered (16 B each), the
+    # three [B, M] outputs (16 B a slot) and n_min, overflow (5 B a row)
+    # written once; a few integer operations a position, far below
+    nbytes = B * L + 16 * n_gathered + 16 * B * M + 5 * B
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_bound_ms = 8 * B * L / INT32_OPS_PER_S * 1e3
+    return dict(
+        name="compact_minimizers", route="cuda",
+        source="rust_mdbg_tpu_torch/csrc/compact_minimizers.cu",
+        replaces="rust_mdbg_tpu/ops/extract.py:137 (_device_extract's "
+                 "two-level sort compaction :137-178 and its gathers, XLA; "
+                 "no pallas_call)",
+        launches=0, max_abs_err=max_abs_err,
+        mismatches=main_mismatches + sum(cases.values()),
+        ms=ms, launch_ms=launch_ms, wrapper_ms=wrapper_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        bound_share=bound_ms / ms, ops_bound_ms=ops_bound_ms,
+        library_ms=None, gbytes_per_s=nbytes / ms / 1e6, shape=[B, L], M=M,
+        chunk_cap=C, minimizers=n_gathered,
+        overflow_rows=int(got[4].sum()), cases=cases)
+
+
+def _window_rows(torch, np, seed: int, B: int, M: int, k: int, mean: float):
+    """Minimizer rows as the compaction leaves them: n_min drawn around
+    `mean` (capped at M) with rows of 0, k, k + 1 and M minimizers, zeros
+    past n_min; u64 values over the whole range with a palindromic window,
+    a row of one value, a period-2 row and top-bit values: CUDA tensors."""
+    rng = np.random.default_rng(seed)
+    mh = rng.integers(0, 1 << 64, (B, M), dtype=np.uint64)
+    n_min = np.minimum(rng.poisson(mean, B), M).astype(np.int32)
+    if B >= 8:
+        n_min[:4] = [0, k, k + 1, M]
+        mh[3, :k] = np.concatenate([mh[3, : (k + 1) // 2],
+                                    mh[3, : k // 2][::-1]])
+        mh[4] = mh[4, 0]
+        n_min[4] = M
+        mh[5, ::2] = mh[5, 0]
+        mh[6] |= np.uint64(1 << 63)
+    mh[np.arange(M)[None, :] >= n_min[:, None]] = 0
+    return (torch.from_numpy(mh.view(np.int64)).cuda(),
+            torch.from_numpy(n_min).cuda())
+
+
+def _append_pair(torch, kernels, mh, n_min, k, S, row0, plain: bool):
+    """window_keys_append (or its plain version) into fresh planes of S +
+    64 slots at slot0 = 32, the counters starting at 3: (lo, hi, occ,
+    n_win, n_over)."""
+    dev = mh.device
+    planes = [torch.full((S + 64,), -5, dtype=torch.int64, device=dev)
+              for _ in range(3)]
+    cnt = [torch.full((), 3, dtype=torch.int64, device=dev)
+           for _ in range(2)]
+    kw = dict(row0=row0, slot0=32, S=S, n_win=cnt[0], n_over=cnt[1])
+    if plain:
+        kernels.slot_append_plain(kernels.window_keys_plain(mh, n_min, k),
+                                  kernels.windows_per_read(n_min, k),
+                                  *planes, **kw)
+    else:
+        kernels.window_keys_append(mh, n_min, k, *planes, **kw)
+    return planes + cnt
+
+
+def check_window_keys(torch, np) -> dict:
+    """The window-keys kernel vs its plain versions, both modes exactly:
+    the keys plane (mode i) and the slot append (mode ii, planes and
+    counters) at the main path's [512, 256] (k = 21, its window slots;
+    timed), the bench's [128, 256], M = 4,192 under --syncmers, odd M, k
+    from 1 to 21, a slot too small for the batch, and a read base whose
+    window coordinates pass 2^32 before the u32 mask."""
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.ops.sort_count import window_slot_capacity
+    from rust_mdbg_tpu_torch.params import Params
+
+    p = Params(k=21, l=14, density=0.003)
+    ps = Params(k=21, l=14, density=0.05, use_syncmers=True, s=4)
+    cases = {}
+    shapes = [("bench", 128, 256, 21, window_slot_capacity(p, 128, 24576,
+                                                            256), 0),
+              ("syncmers", 512, 4192, 21,
+               window_slot_capacity(ps, 512, 24576, 4192), 0),
+              ("odd_M", 37, 97, 21, 40, 0), ("k1", 16, 33, 1, 33, 0),
+              ("k2", 16, 33, 2, 32, 0), ("k7", 16, 70, 7, 64, 0),
+              ("tight_slot", 64, 256, 21, 20, 0),
+              ("row0_past_2^32", 64, 256, 21, 160, 18_000_000)]
+    for name, B, M, k, ws, row0 in shapes:
+        mh, n_min = _window_rows(torch, np, len(name), B, M, k,
+                                 0.6 * M if name != "tight_slot" else M)
+        n = _compare(np, (kernels.window_keys(mh, n_min, k),),
+                     (kernels.window_keys_plain(mh, n_min, k),))[0]
+        n += _compare(np, _append_pair(torch, kernels, mh, n_min, k, B * ws,
+                                       row0, False),
+                      _append_pair(torch, kernels, mh, n_min, k, B * ws,
+                                   row0, True))[0]
+        cases[f"{name} [{B}, {M}] k={k} slot {B * ws}"] = n
+
+    B, M, k = 512, 256, 21
+    ws = window_slot_capacity(p, B, 24576, M)
+    S = B * ws
+    mh, n_min = _window_rows(torch, np, 21, B, M, k, 147.5)
+    keys_mis, keys_err = _compare(np, (kernels.window_keys(mh, n_min, k),),
+                                  (kernels.window_keys_plain(mh, n_min, k),))
+    got = _append_pair(torch, kernels, mh, n_min, k, S, 0, False)
+    want = _append_pair(torch, kernels, mh, n_min, k, S, 0, True)
+    torch.cuda.synchronize()
+    app_mis, app_err = _compare(np, got, want)
+    n_valid = int(kernels.windows_per_read(n_min, k).sum())
+    append = dict(zip(("b_lo", "b_hi", "b_occ", "n_win", "n_over"), got),
+                  row0=0, slot0=32, S=S)
+    launch, _ = kernels.window_keys_launcher(mh, n_min, k, append)
+    ms = queued_kernel_ms(torch, launch, 50)
+    launch_ms = cuda_time_ms(launch, 50)
+    wrapper_ms = cuda_time_ms(lambda: kernels.window_keys_append(
+        mh, n_min, k, *got[:3], row0=0, slot0=32, S=S, n_win=got[3],
+        n_over=got[4]), 50)
+    keys_launch, _ = kernels.window_keys_launcher(mh, n_min, k)
+    keys_ms = queued_kernel_ms(torch, keys_launch, 50)
+    plain_ms = cuda_time_ms(lambda: _append_pair(
+        torch, kernels, mh, n_min, k, S, 0, True), 5)
+    # least time of the append (the main path's mode): the minimizer rows
+    # (8 B a slot) and n_min read once, the three slot planes (24 B a
+    # slot) written once; operations: ~10 k 32-bit operations a valid
+    # window (two 64-bit multiply-adds a Horner step, emulated in IMADs,
+    # and the reversal test)
+    nbytes = 8 * B * M + 4 * B + 24 * S + 16
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * k * n_valid / INT32_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    return dict(
+        name="window_keys", route="cuda",
+        source="rust_mdbg_tpu_torch/csrc/window_keys.cu",
+        replaces="rust_mdbg_tpu/ops/extract.py:489 (_window_keys_poly) and "
+                 "rust_mdbg_tpu/ops/sort_count.py:637 (make_fused_construct's "
+                 "batch-slot compaction :637-669), XLA; no pallas_call",
+        launches=0, max_abs_err=max(keys_err, app_err),
+        mismatches=keys_mis + app_mis + sum(cases.values()),
+        ms=ms, launch_ms=launch_ms, wrapper_ms=wrapper_ms,
+        keys_plane_ms=keys_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_share=bound_ms / ms, bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+        library_ms=None, shape=[B, M], k=k, slot=S, valid_windows=n_valid,
+        cases=cases)
+
+
 def read_records(prefix: str):
     from rust_mdbg_tpu_torch.io.sequences import iter_sequences
 
@@ -564,15 +921,19 @@ def main_path(tmp: str, Params, syn: dict, genome_mbp: float,
     prefix = os.path.join(tmp, "main_hpc" if already_hpc else "main")
     torch.cuda.reset_peak_memory_stats()
     kernels.nthash_select.launches = 0
+    zero_construct_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = assemble_device_chunked(reads, p, prefix, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.nthash_select.launches
+    cl = construct_launches()
     if launches <= 0:
         raise SystemExit(f"main path (already_hpc={already_hpc}): "
                          "nthash_select never launched")
+    require_construct(f"main path (already_hpc={already_hpc})", cl,
+                      CONSTRUCT_KERNELS)
     n_s = n_l = 0
     with open(prefix + ".gfa") as f:
         for line in f:
@@ -591,7 +952,7 @@ def main_path(tmp: str, Params, syn: dict, genome_mbp: float,
         wall_s=wall, read_gbp_per_s=syn["total_bases"] / 1e9 / wall,
         fasta_write_s=syn["fasta_write_s"], phases=st["phases"],
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-        nthash_select_launches=launches)
+        nthash_select_launches=launches, construct_launches=cl)
     if already_hpc:
         if st.get("edge_join") != "device" \
                 or st["catalog_rows"] != st["nb_nodes"]:
@@ -691,8 +1052,13 @@ def construct_breakdown(tmp: str, Params) -> dict:
                   if a.device_type == DeviceType.CPU
                   and a.self_device_time_total > 0), key=lambda r: -r[1])
     B = plan["B"]
+    batches = min(plan["n_batches"], (fill + B - 1) // B)
+    # kernel launches (copies and fills aside) over the chunk's batches
+    launches = sum(n for k, (_, n) in by_name.items()
+                   if not k.startswith(("Memcpy", "Memset")))
     return dict(
-        reads=int(fill), batches=min(plan["n_batches"], (fill + B - 1) // B),
+        reads=int(fill), batches=batches, kernel_launches=launches,
+        launches_a_batch=launches / batches,
         width=int(codes.shape[1]), fed_width=int(fed_width),
         window_us=wall_us, unprofiled_us=unprofiled_us,
         device_events=len(spans),
@@ -793,6 +1159,7 @@ def whole_run_main(tmp: str, Params, syn: dict, leg: str, chunked=None):
     prefix = os.path.join(tmp, f"whole_{leg}")
     torch.cuda.reset_peak_memory_stats()
     kernels.nthash_select.launches = 0
+    zero_construct_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if leg == "raw17":
@@ -806,9 +1173,11 @@ def whole_run_main(tmp: str, Params, syn: dict, leg: str, chunked=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.nthash_select.launches
+    cl = construct_launches()
     if launches <= 0:
         raise SystemExit(f"whole-run main path ({leg}): nthash_select never "
                          "launched")
+    require_construct(f"whole-run main path ({leg})", cl, CONSTRUCT_KERNELS)
     if "phase1_nodes" not in st:
         raise SystemExit(f"whole-run main path ({leg}): the run did not "
                          "take the whole-run path")
@@ -831,7 +1200,8 @@ def whole_run_main(tmp: str, Params, syn: dict, leg: str, chunked=None):
         nodes=st["nb_nodes"], edges=st["nb_edges"], chunks=st["nb_chunks"],
         wall_s=wall, read_gbp_per_s=syn["total_bases"] / 1e9 / wall,
         phases=st["phases"], peak_mem_bytes=torch.cuda.max_memory_allocated(),
-        nthash_select_launches=launches, phase1_fired=st["phase1_nodes"] > 0,
+        nthash_select_launches=launches, construct_launches=cl,
+        phase1_fired=st["phase1_nodes"] > 0,
         phase1_nodes=st["phase1_nodes"],
         phase1_finalize_s=st.get("phase1_finalize_s"),
         phase1_emit_s=st.get("phase1_emit_s"), replans=st["replans"],
@@ -1158,7 +1528,13 @@ def fault_legs(tmp: str, Params) -> dict:
     length after read 100 (the chunked driver stages it alone, the whole
     run restarts), (b) a forced small minimizer capacity (chunks re-run at
     doubled slots, the whole run restarts), (c) an over-budget run at
-    minabund 17 (the streaming engine on the card), density and syncmers."""
+    minabund 17 (the streaming engine on the card), density and syncmers;
+    and (d) a chunk re-planned until its minimizer slots equal its staged
+    width (core/chunked.doubled_plan's M == L, the compaction's flat branch
+    at a two-level width): pre-HPC'd 4,096 bp reads staged at 4,096, d =
+    0.9 (nearly every l-mer a minimizer), M from 1,024 to 4,096, with the
+    construct kernels' launches and the compaction seen at M == L on the
+    card."""
     from rust_mdbg_tpu_torch.core.pipeline import assemble
     from rust_mdbg_tpu_torch.experiments.synth import write_synthetic_reads
     from rust_mdbg_tpu_torch.ops import kernels
@@ -1172,6 +1548,9 @@ def fault_legs(tmp: str, Params) -> dict:
     long = os.path.join(tmp, "fault_long.fa")
     with open(long, "w") as f:
         f.write("\n".join(lines))
+    wide = os.path.join(tmp, "fault_wide.fa")
+    write_synthetic_reads(wide, genome_mbp=0.05, coverage=5, read_len=4096,
+                          error_rate=0.002, seed=17)
     kw = dict(k=21, l=14, density=0.003, batch_reads=64)
     legs = [("long_read_chunked", long, dict(min_kmer_abundance=2), None),
             ("long_read_whole17", long, dict(min_kmer_abundance=17), None),
@@ -1184,17 +1563,24 @@ def fault_legs(tmp: str, Params) -> dict:
             # batches of 512: the CPU side walks each column by column
             ("over_budget17_syncmers", base,
              dict(min_kmer_abundance=17, k=7, batch_reads=512, **SYNC_KW),
-             1)]
+             1),
+            ("doubled_m_to_width", wide,
+             dict(min_kmer_abundance=2, k=7, l=10, density=0.9,
+                  max_minimizers_per_read=1024, max_read_len=4096,
+                  reads_already_hpc=True), None)]
     out = {}
     for leg, reads, extra, budget in legs:
         t0 = time.perf_counter()
         p = Params(**{**kw, **extra})
         before = (kernels.nthash_select.launches,
                   kernels.syncmer_select.launches)
-        sg = assemble(reads, p, os.path.join(tmp, f"{leg}_g"), device=DEVICE,
-                      mem_budget=budget)
+        zero_construct_launches()
+        with CompactShapes() as shapes:
+            sg = assemble(reads, p, os.path.join(tmp, f"{leg}_g"),
+                          device=DEVICE, mem_budget=budget)
         launched = (kernels.nthash_select.launches - before[0],
                     kernels.syncmer_select.launches - before[1])
+        cl = construct_launches()
         sc = assemble(reads, p, os.path.join(tmp, f"{leg}_c"), device="cpu",
                       mem_budget=budget)
         _same_outputs(f"fault leg ({leg}), cuda vs cpu",
@@ -1211,8 +1597,18 @@ def fault_legs(tmp: str, Params) -> dict:
             raise SystemExit(f"fault leg ({leg}): route {route}, re-plans "
                              f"{sg.get('replans')} / {sc.get('replans')}, "
                              f"launches {launched}, {sg['nb_nodes']} nodes")
+        if leg == "doubled_m_to_width":
+            require_construct(f"fault leg ({leg})", cl, CONSTRUCT_KERNELS)
+            at_width = {(d, L, M) for _, L, M, d in shapes.seen}
+            if (DEVICE, 4096, 4096) not in at_width or sg["replans"] < 2:
+                raise SystemExit(f"fault leg ({leg}): no compaction at M == "
+                                 f"L == 4096 on {DEVICE}: {sorted(at_width)}"
+                                 f", re-plans {sg['replans']}")
         out[leg] = dict(nodes=sg["nb_nodes"], edges=sg["nb_edges"],
                         reads=sg["nb_reads"], replans=sg.get("replans"),
+                        construct_launches=cl,
+                        compaction_shapes=sorted(
+                            {s[1:3] for s in shapes.seen}),
                         route=route or ("whole run" if "phase1_nodes" in sg
                                         else "chunked"),
                         nthash_select_launches=launched[0],
@@ -1248,6 +1644,7 @@ def scheme_main(tmp: str, Params, syn: dict, leg: str, np) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.nthash_select.launches = 0
     kernels.syncmer_select.launches = 0
+    zero_construct_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = pipeline.assemble(reads, p, prefix, device=DEVICE)
@@ -1255,6 +1652,12 @@ def scheme_main(tmp: str, Params, syn: dict, leg: str, np) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(nthash_select=kernels.nthash_select.launches,
                     syncmer_select=kernels.syncmer_select.launches)
+    cl = construct_launches()
+    # the chunked driver runs both construct kernels; the streaming engine
+    # (--uhs --bf, the --reference tiler) the compaction alone
+    require_construct(f"scheme main path ({leg})", cl,
+                      CONSTRUCT_KERNELS if leg == "syncmers"
+                      else CONSTRUCT_KERNELS[:1])
     wanted = "syncmer_select" if leg == "syncmers" else "nthash_select"
     if launches[wanted] <= 0:
         raise SystemExit(f"scheme main path ({leg}): {wanted} never "
@@ -1275,7 +1678,7 @@ def scheme_main(tmp: str, Params, syn: dict, leg: str, np) -> dict:
         host_rows=st.get("host_rows", 0),
         nthash_select_launches=launches["nthash_select"],
         syncmer_select_launches=launches["syncmer_select"],
-        replans=st.get("replans"))
+        construct_launches=cl, replans=st.get("replans"))
     if leg == "syncmers":
         if "nb_chunks" not in st:
             raise SystemExit("scheme main path (syncmers): the run did not "
@@ -2668,12 +3071,16 @@ def sharded_main(tmp: str, Params, syn: dict, n: int, chunked: dict):
     p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
     torch.cuda.reset_peak_memory_stats()
     kernels.nthash_select.launches = 0
+    zero_construct_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = assemble_sharded(reads, p, prefix, n_devices=n, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.nthash_select.launches
+    cl = construct_launches()
+    # the sharded step extracts the compact output: compaction only
+    require_construct(f"sharded main (mesh {n})", cl, CONSTRUCT_KERNELS[:1])
     if launches <= 0:
         raise SystemExit(f"sharded main (mesh {n}): nthash_select never "
                          "launched")
@@ -2693,7 +3100,8 @@ def sharded_main(tmp: str, Params, syn: dict, n: int, chunked: dict):
         shards_over_jax_node_cap=sum(k > (1 << 20) for k in keys),
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         staged_shapes=st["staged_shapes"],
-        nthash_select_launches=launches, same_graph_as_chunked=True)
+        nthash_select_launches=launches, construct_launches=cl,
+        same_graph_as_chunked=True)
 
 
 def multihost_worker(out_json: str, reads: str, prefix: str,
@@ -2996,10 +3404,16 @@ def bench_leg(tmp: str, leg: str, genome_mbp: int, use_bf: bool) -> dict:
     setup_s = time.perf_counter() - t0
     kernels.nthash_select.launches = 0
     kernels.syncmer_select.launches = 0
+    zero_construct_launches()
     t0 = time.perf_counter()
-    res = bench.run_protocol(b, repeats=1, pipelined=True)
+    res = bench.run_protocol(
+        b, repeats=1, pipelined=True,
+        profile_dir=(os.path.join(tmp, f"bench_{leg}_trace")
+                     if DEVICE == "cuda" else None))
     seconds = time.perf_counter() - t0
     launches = kernels.nthash_select.launches
+    cl = construct_launches()
+    require_construct(f"bench ({leg})", cl, CONSTRUCT_KERNELS)
     line = res["line"]
     print(f"bench ({leg}): {json.dumps(line)}", flush=True)
     if launches <= 0 or kernels.syncmer_select.launches:
@@ -3021,7 +3435,16 @@ def bench_leg(tmp: str, leg: str, genome_mbp: int, use_bf: bool) -> dict:
                n_batches=b.n_batches, w_slot=b.W_slot,
                slot_frac=b.slot_frac, pipe_phases=pipe["phases"],
                pipe_nodes=pipe["nb_nodes"], pipe_edges=pipe["nb_edges"],
-               nthash_select_launches=launches)
+               nthash_select_launches=launches, construct_launches=cl)
+    prof = res["profile"]
+    if prof is not None:
+        # every kernel launch of one traced rep, by batch (launches a batch
+        # of the construct loop, with the rep's reductions and join)
+        out.update(rep_kernel_launches=prof["kernel_launches"],
+                   launches_a_batch=prof["kernel_launches"] / b.n_batches,
+                   rep_busy_us=prof["busy_us"],
+                   rep_busy_share_unprofiled=prof["busy_share_unprofiled"],
+                   rep_kernels=prof["kernels"])
     del b, res
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -3124,7 +3547,9 @@ def main() -> int:
         return 0
     hash_bound = Params(k=21, l=14, density=0.003).hash_bound
     rows = [check_nthash_select(torch, np, hash_bound),
-            check_syncmer_select(torch, np)]
+            check_syncmer_select(torch, np),
+            check_compact_minimizers(torch, np, hash_bound),
+            check_window_keys(torch, np)]
     t0 = time.perf_counter()
     ec_checks = [check_semiglobal_scores(torch, np), check_poa_dp(torch, np)]
     for r in rows + ec_checks:
@@ -3286,6 +3711,19 @@ def main() -> int:
     rows[1]["launches_by_leg"] = {
         f"scheme_{leg}": w["syncmer_select_launches"]
         for leg, w in scheme.items()}
+    # the construct body: the chunked, whole-run and bench legs run both
+    # kernels, the sharded and streaming legs the compaction alone
+    for r in rows[2:4]:
+        name = r["name"]
+        r["launches_by_leg"] = {
+            leg: w["construct_launches"][name] for leg, w in (
+                ("raw", mp), ("prehpc", hp),
+                *((f"whole_{leg}", w) for leg, w in whole.items()),
+                *((f"scheme_{leg}", w) for leg, w in scheme.items()),
+                *((f"sharded_mesh{n}", w) for n, w in sharded.items()),
+                ("fault_doubled_m_to_width",
+                 faults["doubled_m_to_width"]),
+                *((f"bench_{leg}", bp[leg]) for leg in ("main", "bf")))}
     for check, timing, name, leg, src, replaces in (
             (ec_checks[0], sg_t, "semiglobal_scores", "sequential",
              "semiglobal_scores.cu",

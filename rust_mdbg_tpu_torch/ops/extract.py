@@ -26,7 +26,6 @@ u64 values are int64 tensors with the same bits (ops/u64.py).
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -34,8 +33,9 @@ import torch
 
 from . import u64
 from .hpc import hpc
-from .kernels import nthash_select, syncmer_select
-from .kminmer import canonicalize, fingerprint128, poly_fp_tables
+from .kernels import (compact_minimizers, nthash_select, syncmer_select,
+                      window_keys, windows_per_read)
+from .kminmer import canonicalize, fingerprint128
 
 _I64_MAX = (1 << 63) - 1
 
@@ -56,87 +56,6 @@ def capacity(params, L: int, ignore_override: bool = False) -> int:
     sigma = math.sqrt(max(1.0, expect * (1 - rate)))
     m = int(max(p.k + 33, expect + 8 * sigma))
     return (m + 31) & ~31
-
-
-def _chunk_slot_capacity(hash_bound: int, chunk: int = 512) -> int:
-    """Per-chunk slot count for two-level compaction: selection rate ~= 2x
-    density, +8 binomial sigmas, rounded up to a multiple of 8, clamped to
-    [16, 256].  Chunks exceeding this set the overflow flag."""
-    rate = min(1.0, 2.0 * hash_bound / 2.0 ** 64)
-    expect = chunk * rate
-    sigma = math.sqrt(max(1.0, expect * (1.0 - rate)))
-    c = int(expect + 8 * sigma + 4)
-    return max(16, min(256, (c + 7) & ~7))
-
-
-def _compact_positions(sel: torch.Tensor, hash_bound: int, M: int):
-    """First M selected positions per row (ascending; L where absent) and
-    the overflow flag, by the same two compaction branches as the JAX
-    package: two-level per-512-chunk sorts for L % 512 == 0 and L > 2048,
-    one flat row sort otherwise.  At M == L (a chunk re-planned to keep
-    every position, core/chunked.doubled_plan) the flat sort, which has no
-    per-chunk cap, so that the overflow flag stays clear."""
-    B, L = sel.shape
-    dev = sel.device
-    n_min_raw = sel.sum(dim=1, dtype=torch.int32)
-    if L % 512 == 0 and L > 2048 and M != L:
-        C = _chunk_slot_capacity(hash_bound)
-        nch = L // 512
-        selc = sel.reshape(B * nch, 512)
-        iot = torch.arange(512, dtype=torch.int32, device=dev)
-        sck = torch.sort(torch.where(selc, iot, 512), dim=1).values
-        base = (torch.arange(B * nch, dtype=torch.int32, device=dev)
-                % nch)[:, None] * 512
-        cval = torch.where(sck == 512, L, sck + base)
-        l2s = torch.sort(cval[:, :C].reshape(B, nch * C), dim=1).values
-        if nch * C < M:
-            l2s = torch.cat([l2s, torch.full((B, M - nch * C), L,
-                                             dtype=l2s.dtype, device=dev)],
-                            dim=1)
-        chunk_over = (selc.sum(dim=1) > C).reshape(B, nch).any(dim=1)
-        overflow = (n_min_raw > M) | chunk_over
-        first = l2s[:, :M]
-    else:
-        iot = torch.arange(L, dtype=torch.int32, device=dev)
-        first = torch.sort(torch.where(sel, iot, L), dim=1).values[:, :M]
-        overflow = n_min_raw > M
-    return first, torch.clamp(n_min_raw, max=M), overflow
-
-
-@functools.lru_cache(maxsize=None)
-def _poly_tables_cached(k: int, M: int):
-    return poly_fp_tables(k, M)
-
-
-def window_keys_poly(mh: torch.Tensor, k: int, M: int) -> torch.Tensor:
-    """Canonical 128-bit window fingerprints [B, W, 2] from the compacted
-    minimizer rows mh [B, M] via prefix sums (no [B, W, k] tensor).  Equals
-    fingerprint128(canonicalize(window)) exactly; sums wrap mod 2^64."""
-    W = M - k + 1
-    tables = _poly_tables_cached(k, M)
-    dev = mh.device
-
-    # KmerVec::normalize reversal flag: lexicographic first difference of
-    # v[w+j] vs v[w+k-1-j]; palindromes report True
-    rev_flag = torch.ones(mh.shape[:-1] + (W,), dtype=torch.bool, device=dev)
-    for j in range(k - 1, -1, -1):
-        a = mh[..., j : j + W]
-        b = mh[..., k - 1 - j : k - 1 - j + W]
-        rev_flag = torch.where(a != b, u64.gt(a, b), rev_flag)
-
-    zero = torch.zeros(mh.shape[:-1] + (1,), dtype=torch.int64, device=dev)
-    lanes = []
-    for lane in (0, 1):
-        t = tables[lane]
-        apow = u64.from_numpy(t["apow"], dev)
-        ainvpow = u64.from_numpy(t["ainvpow"], dev)
-        off_ak = u64.s64(int(t["off_ak"]))
-        S = torch.cat([zero, torch.cumsum(mh * ainvpow[:M], dim=-1)], dim=-1)
-        T = torch.cat([zero, torch.cumsum(mh * apow[:M], dim=-1)], dim=-1)
-        fwd = off_ak + apow[k - 1 : k - 1 + W] * (S[..., k : k + W] - S[..., :W])
-        rev = off_ak + ainvpow[:W] * (T[..., k : k + W] - T[..., :W])
-        lanes.append(torch.where(rev_flag, rev, fwd))
-    return torch.stack(lanes, dim=-1)
 
 
 # --- scheme stages ------------------------------------------------------------
@@ -304,7 +223,8 @@ def device_extract(codes: torch.Tensor, lengths: torch.Tensor, *tables,
                    count_output: bool = False, syncmer=None,
                    lmer: bool = False, filter_mode: str | None = None,
                    filter_bloom: bool = False, ref_cuts: bool = False,
-                   minimizers_only: bool = False) -> dict:
+                   minimizers_only: bool = False,
+                   count_keys: bool = True) -> dict:
     """Extraction of one [B, L] batch of reads; the keywords are those of
     the JAX package's `_device_extract`.
 
@@ -315,14 +235,14 @@ def device_extract(codes: torch.Tensor, lengths: torch.Tensor, *tables,
     `syncmer` is (s, bound) for --syncmers.  `minimizers_only` returns after
     the compaction with the minimizer rows alone (what the long-sequence
     tiler reads; under jit the JAX package gets the same by dead-code
-    elimination)."""
+    elimination).  `count_keys=False` (count path only) returns `n_min` in
+    place of `keys` and `nw`."""
     ti = 0
     if lmer:
         lmer_keys, lmer_vals = tables[0], tables[1]
         ti = 2
     B, L = codes.shape
     dev = codes.device
-    idx = torch.arange(L, dtype=torch.int32, device=dev)
 
     if already_hpc:
         hpc_codes, pos_map, hpc_len = codes, None, lengths
@@ -339,6 +259,7 @@ def device_extract(codes: torch.Tensor, lengths: torch.Tensor, *tables,
     # the UHS/LCP quirk) or under ref_cuts: there pos + l is the end.
     want_ext = not (already_hpc or filter_mode is not None or ref_cuts)
     if want_ext:
+        idx = torch.arange(L, dtype=torch.int32, device=dev)
         in_range = (idx[None, :] + l) < hpc_len[:, None]
         shifted = torch.zeros_like(pos_map)
         shifted[:, : max(0, L - l)] = pos_map[:, l:]
@@ -376,41 +297,41 @@ def device_extract(codes: torch.Tensor, lengths: torch.Tensor, *tables,
                 canon, sel, hpc_codes, tables[ti], tables[ti + 1],
                 tables[ti + 2], l=l, skip_n=skip_n)
 
-    first, n_min, overflow = _compact_positions(sel, hash_bound, M)
-    perm_m = torch.clamp(first, max=L - 1).long()
-    in_m = torch.arange(M, device=dev)[None, :] < n_min[:, None]
-    minim_hash = torch.where(in_m, torch.gather(canon, 1, perm_m), 0)
-    if pos_map is None:  # a minimizer's position is its column
-        minim_pos = torch.where(in_m, perm_m.to(torch.int32), 0)
-    else:
-        minim_pos = torch.where(in_m, torch.gather(pos_map, 1, perm_m), 0)
+    # ordered compaction of the selected positions into [B, M] rows, with
+    # the gathers of hash, position (the column when there is no map) and
+    # extent end
+    minim_hash, minim_pos, mpe, n_min, overflow = compact_minimizers(
+        sel, canon, pos_map, pme if want_ext else None,
+        hash_bound=hash_bound, M=M)
     if minimizers_only:
         return dict(minim_hash=minim_hash, minim_pos=minim_pos, n_min=n_min,
                     overflow=overflow)
 
-    W = M - k + 1
-    widx = torch.arange(W, device=dev)
-    valid_w = (n_min[:, None] > k) & (widx[None, :] < n_min[:, None] - k + 1)
-
     if count_output:
-        # Counting path: per-window 128-bit canonical fingerprints in O(1)
-        # per window from prefix sums over the compacted minimizer row; no
-        # [B, W, k] window tensor.  Invalid windows get the all-ones
-        # sentinel key so the counter drops them; the per-window metadata
-        # is reconstructed from (mh, mp) at finalize.
-        keys = torch.where(valid_w[..., None],
-                           window_keys_poly(minim_hash, k, M), u64.SENTINEL)
-        nw = torch.where(n_min > k, n_min - k + 1, 0).to(torch.int32)
-        out = dict(keys=keys, mh=minim_hash, mp=minim_pos, nw=nw,
-                   overflow=overflow)
+        # Counting path: per-window 128-bit canonical fingerprints, the
+        # all-ones sentinel where a window is not valid (the counter drops
+        # it); no [B, W, k] window tensor.  The per-window metadata is
+        # reconstructed from (mh, mp) at finalize.  Without `count_keys`
+        # the keys are left to the caller's slot append
+        # (kernels.window_keys_append), which takes n_min in their place.
+        out = dict(mh=minim_hash, mp=minim_pos, overflow=overflow)
+        if count_keys:
+            out.update(keys=window_keys(minim_hash, n_min, k),
+                       nw=windows_per_read(n_min, k))
+        else:
+            out["n_min"] = n_min
         if want_ext:
-            out["mpe"] = torch.where(in_m, torch.gather(pme, 1, perm_m), 0)
+            out["mpe"] = mpe
         if fstate_out is not None:
             out["fstate"] = fstate_out
         return out
 
+    W = M - k + 1
+    widx = torch.arange(W, device=dev)
+    valid_w = (n_min[:, None] > k) & (widx[None, :] < n_min[:, None] - k + 1)
+    in_m = torch.arange(M, device=dev)[None, :] < n_min[:, None]
     if want_ext:
-        minim_end = torch.where(in_m, torch.gather(pme, 1, perm_m), 0)
+        minim_end = mpe
     else:
         minim_end = torch.where(in_m, minim_pos + l, 0)
 
@@ -487,14 +408,18 @@ def device_extract(codes: torch.Tensor, lengths: torch.Tensor, *tables,
 
 def extract_count(codes: torch.Tensor, lengths: torch.Tensor, *, l: int,
                   k: int, hash_bound: int, M: int, already_hpc: bool = False,
-                  syncmer=None, ref_cuts: bool = False) -> dict:
+                  syncmer=None, ref_cuts: bool = False,
+                  keys: bool = True) -> dict:
     """Count-path extraction of one [B, L] batch of reads: `keys` [B, W, 2]
     (invalid windows hold the all-ones sentinel), `mh` [B, M], `mp` [B, M]
     int32, `mpe` [B, M] int32 (raw reads without ref_cuts only), `nw` [B]
-    int32 and the per-read `overflow` flag."""
+    int32 and the per-read `overflow` flag.  With keys=False, `n_min` [B]
+    int32 in place of `keys` and `nw` (the input of
+    kernels.window_keys_append)."""
     return device_extract(codes, lengths, l=l, k=k, hash_bound=hash_bound,
                           M=M, already_hpc=already_hpc, count_output=True,
-                          syncmer=syncmer, ref_cuts=ref_cuts)
+                          syncmer=syncmer, ref_cuts=ref_cuts,
+                          count_keys=keys)
 
 
 # --- the engine wrapper ---------------------------------------------------------

@@ -15,6 +15,7 @@ Counterpart of rust_mdbg_tpu/ops/pallas_kernels.py.  Each kernel has:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import subprocess
@@ -25,6 +26,7 @@ import torch
 
 from . import u64
 from .align import semiglobal_scores_plain
+from .kminmer import poly_fp_tables
 from .nthash import nthash_windows
 from .poa_device import poa_dp_plain
 from .syncmers_device import syncmer_planes
@@ -37,7 +39,9 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = {"nthash_select": "nthash_select.cu",
            "syncmer_select": "syncmer_select.cu",
            "semiglobal_scores": "semiglobal_scores.cu",
-           "poa_dp": "poa_dp.cu"}
+           "poa_dp": "poa_dp.cu",
+           "compact_minimizers": "compact_minimizers.cu",
+           "window_keys": "window_keys.cu"}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -110,6 +114,13 @@ _ENTRY_POINTS = {
     },
     "poa_dp": {
         "poa_dp_launch": [_P] * 17 + [_I] * 7 + [_P],
+    },
+    "compact_minimizers": {
+        "compact_minimizers_launch": [_P] * 9 + [_I] * 5 + [_P],
+    },
+    "window_keys": {
+        "window_keys_launch": [_P, _P] + [_I] * 3 + [_P] * 4
+                              + [ctypes.c_longlong] * 2 + [_P] * 3,
     },
 }
 
@@ -267,6 +278,353 @@ def syncmer_select(hpc_codes: torch.Tensor, hpc_len: torch.Tensor, *, l: int,
 
 
 syncmer_select.launches = 0
+
+
+# --- compact_minimizers -------------------------------------------------------
+
+#: columns of a chunk of the two-level compaction
+COMPACT_CHUNK = 512
+
+
+def chunk_slot_capacity(hash_bound: int, chunk: int = COMPACT_CHUNK) -> int:
+    """Per-chunk slot count for two-level compaction: selection rate ~= 2x
+    density, +8 binomial sigmas, rounded up to a multiple of 8, clamped to
+    [16, 256].  Chunks exceeding this set the overflow flag."""
+    rate = min(1.0, 2.0 * hash_bound / 2.0 ** 64)
+    expect = chunk * rate
+    sigma = math.sqrt(max(1.0, expect * (1.0 - rate)))
+    c = int(expect + 8 * sigma + 4)
+    return max(16, min(256, (c + 7) & ~7))
+
+
+def compaction_two_level(L: int, M: int) -> bool:
+    """The JAX package's rule for the two-level branch (L % 512 == 0 and L >
+    2048), and M != L: a chunk re-planned to keep every position
+    (core/chunked.doubled_plan) takes the flat branch, which has no
+    per-chunk cap, so that the overflow flag stays clear."""
+    return L % COMPACT_CHUNK == 0 and L > 2048 and M != L
+
+
+def compact_positions_plain(sel: torch.Tensor, hash_bound: int, M: int):
+    """First M selected positions per row (ascending; L where absent) and
+    the overflow flag, by the same two compaction branches as the JAX
+    package: two-level per-512-chunk sorts (compaction_two_level), one
+    flat row sort otherwise."""
+    B, L = sel.shape
+    dev = sel.device
+    n_min_raw = sel.sum(dim=1, dtype=torch.int32)
+    if compaction_two_level(L, M):
+        C = chunk_slot_capacity(hash_bound)
+        nch = L // COMPACT_CHUNK
+        selc = sel.reshape(B * nch, COMPACT_CHUNK)
+        iot = torch.arange(COMPACT_CHUNK, dtype=torch.int32, device=dev)
+        sck = torch.sort(torch.where(selc, iot, COMPACT_CHUNK), dim=1).values
+        base = (torch.arange(B * nch, dtype=torch.int32, device=dev)
+                % nch)[:, None] * COMPACT_CHUNK
+        cval = torch.where(sck == COMPACT_CHUNK, L, sck + base)
+        l2s = torch.sort(cval[:, :C].reshape(B, nch * C), dim=1).values
+        if nch * C < M:
+            l2s = torch.cat([l2s, torch.full((B, M - nch * C), L,
+                                             dtype=l2s.dtype, device=dev)],
+                            dim=1)
+        chunk_over = (selc.sum(dim=1) > C).reshape(B, nch).any(dim=1)
+        overflow = (n_min_raw > M) | chunk_over
+        first = l2s[:, :M]
+    else:
+        iot = torch.arange(L, dtype=torch.int32, device=dev)
+        first = torch.sort(torch.where(sel, iot, L), dim=1).values[:, :M]
+        overflow = n_min_raw > M
+    return first, torch.clamp(n_min_raw, max=M), overflow
+
+
+def compact_minimizers_plain(sel: torch.Tensor, canon: torch.Tensor,
+                             pos_map: torch.Tensor | None = None,
+                             pme: torch.Tensor | None = None, *,
+                             hash_bound: int, M: int):
+    """Plain torch version: compact_positions_plain, then the gathers of
+    canon, pos_map (the column itself without one) and pme at the first M
+    positions (L - 1 where a position is absent), zero past n_min."""
+    L = sel.shape[1]
+    first, n_min, overflow = compact_positions_plain(sel, hash_bound, M)
+    perm_m = torch.clamp(first, max=L - 1).long()
+    in_m = torch.arange(M, device=sel.device)[None, :] < n_min[:, None]
+    minim_hash = torch.where(in_m, torch.gather(canon, 1, perm_m), 0)
+    if pos_map is None:  # a minimizer's position is its column
+        minim_pos = torch.where(in_m, perm_m.to(torch.int32), 0)
+    else:
+        minim_pos = torch.where(in_m, torch.gather(pos_map, 1, perm_m), 0)
+    mpe = (None if pme is None
+           else torch.where(in_m, torch.gather(pme, 1, perm_m), 0))
+    return minim_hash, minim_pos, mpe, n_min, overflow
+
+
+def compact_minimizers_launcher(sel: torch.Tensor, canon: torch.Tensor,
+                                pos_map: torch.Tensor | None = None,
+                                pme: torch.Tensor | None = None, *,
+                                hash_bound: int, M: int):
+    """Checks one launch of csrc/compact_minimizers.cu (CUDA tensors),
+    allocates its outputs and returns (launch, outputs): launch() runs the
+    kernel on them (no allocation, no host sync, no count) and raises if
+    the launch fails.  The outputs are compact_minimizers'."""
+    _check_cuda(sel, torch.bool, "sel")
+    _check_cuda(canon, torch.int64, "canon")
+    if sel.dim() != 2 or canon.shape != sel.shape:
+        raise ValueError(f"bad shapes {tuple(sel.shape)} / "
+                         f"{tuple(canon.shape)}")
+    for t, name in ((pos_map, "pos_map"), (pme, "pme")):
+        if t is not None:
+            _check_cuda(t, torch.int32, name)
+            if t.shape != sel.shape:
+                raise ValueError(f"{name} of shape {tuple(t.shape)} for "
+                                 f"{tuple(sel.shape)}")
+    if any(t is not None and t.device != sel.device
+           for t in (canon, pos_map, pme)):
+        raise ValueError("compact_minimizers' inputs on different devices")
+    if M < 1:
+        raise ValueError(f"compact_minimizers needs M >= 1, got {M}")
+    B, L = sel.shape
+    dev = sel.device
+    two_level = compaction_two_level(L, M)
+    C = chunk_slot_capacity(hash_bound) if two_level else COMPACT_CHUNK
+    outs = (torch.empty((B, M), dtype=torch.int64, device=dev),
+            torch.empty((B, M), dtype=torch.int32, device=dev),
+            None if pme is None
+            else torch.empty((B, M), dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev))
+    lib = _lib("compact_minimizers")
+    args = tuple(None if t is None else t.data_ptr()
+                 for t in (sel, canon, pos_map, pme) + outs) + (
+        B, L, M, C, int(two_level), _stream(dev))
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.compact_minimizers_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"compact_minimizers launch failed: CUDA "
+                               f"error {err}")
+
+    return launch, outs
+
+
+def compact_minimizers(sel: torch.Tensor, canon: torch.Tensor,
+                       pos_map: torch.Tensor | None = None,
+                       pme: torch.Tensor | None = None, *, hash_bound: int,
+                       M: int):
+    """Ordered compaction of the selected minimizers of a batch into [B, M]
+    rows, with their gathers: the compaction of the JAX package's
+    `_device_extract` (two-level when compaction_two_level(L, M), with
+    chunk_slot_capacity(hash_bound) slots a chunk; flat otherwise).
+
+    sel bool [B, L], canon int64 [B, L] (u64 bits), pos_map and pme int32
+    [B, L] or None.  Returns (minim_hash int64 [B, M], minim_pos int32
+    [B, M], mpe int32 [B, M] or None, n_min int32 [B], overflow bool [B]).
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/compact_minimizers.cu."""
+    if sel.device.type == "cpu":
+        return compact_minimizers_plain(sel, canon, pos_map, pme,
+                                        hash_bound=hash_bound, M=M)
+    launch, outs = compact_minimizers_launcher(
+        sel, canon, pos_map, pme, hash_bound=hash_bound, M=M)
+    launch()
+    compact_minimizers.launches += 1
+    return outs
+
+
+compact_minimizers.launches = 0
+
+
+# --- window_keys ----------------------------------------------------------------
+
+#: shared memory of a window_keys block: (256 + k - 1) words, at most 48 KB
+WINDOW_KEYS_MAX_K = 48 * 1024 // 8 - 255
+
+
+@functools.lru_cache(maxsize=None)
+def _poly_tables_cached(k: int, M: int):
+    return poly_fp_tables(k, M)
+
+
+def window_keys_poly_plain(mh: torch.Tensor, k: int, M: int) -> torch.Tensor:
+    """Canonical 128-bit window fingerprints [B, W, 2] from the compacted
+    minimizer rows mh [B, M] via prefix sums (no [B, W, k] tensor), every
+    window, valid or not: the JAX package's `_window_keys_poly`.  Equals
+    fingerprint128(canonicalize(window)) exactly; sums wrap mod 2^64."""
+    W = M - k + 1
+    tables = _poly_tables_cached(k, M)
+    dev = mh.device
+
+    # KmerVec::normalize reversal flag: lexicographic first difference of
+    # v[w+j] vs v[w+k-1-j]; palindromes report True
+    rev_flag = torch.ones(mh.shape[:-1] + (W,), dtype=torch.bool, device=dev)
+    for j in range(k - 1, -1, -1):
+        a = mh[..., j : j + W]
+        b = mh[..., k - 1 - j : k - 1 - j + W]
+        rev_flag = torch.where(a != b, u64.gt(a, b), rev_flag)
+
+    zero = torch.zeros(mh.shape[:-1] + (1,), dtype=torch.int64, device=dev)
+    lanes = []
+    for lane in (0, 1):
+        t = tables[lane]
+        apow = u64.from_numpy(t["apow"], dev)
+        ainvpow = u64.from_numpy(t["ainvpow"], dev)
+        off_ak = u64.s64(int(t["off_ak"]))
+        S = torch.cat([zero, torch.cumsum(mh * ainvpow[:M], dim=-1)], dim=-1)
+        T = torch.cat([zero, torch.cumsum(mh * apow[:M], dim=-1)], dim=-1)
+        fwd = off_ak + apow[k - 1 : k - 1 + W] * (S[..., k : k + W] - S[..., :W])
+        rev = off_ak + ainvpow[:W] * (T[..., k : k + W] - T[..., :W])
+        lanes.append(torch.where(rev_flag, rev, fwd))
+    return torch.stack(lanes, dim=-1)
+
+
+def windows_per_read(n_min: torch.Tensor, k: int) -> torch.Tensor:
+    """Valid windows of each read, a prefix of its row: n_min - k + 1 where
+    n_min > k, else 0 (int32)."""
+    return torch.where(n_min > k, n_min - k + 1, 0).to(torch.int32)
+
+
+def window_keys_plain(mh: torch.Tensor, n_min: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """Plain torch version of the keys plane: window_keys_poly_plain, the
+    all-ones sentinel where a window is not valid (w >= n_min - k + 1, or
+    n_min <= k)."""
+    M = mh.shape[1]
+    W = M - k + 1
+    widx = torch.arange(W, device=mh.device)
+    valid_w = (n_min[:, None] > k) & (widx[None, :] < n_min[:, None] - k + 1)
+    return torch.where(valid_w[..., None], window_keys_poly_plain(mh, k, M),
+                       u64.SENTINEL)
+
+
+def slot_append_plain(keys: torch.Tensor, nw: torch.Tensor, b_lo, b_hi,
+                      b_occ, *, row0: int, slot0: int, S: int, n_win, n_over):
+    """Plain torch version of the batch-slot append: valid windows are a
+    per-read prefix, so output position p of the slot maps to (row, w) by
+    the rank of p in the cumulative per-read window counts.  keys [B, W, 2]
+    (window_keys_plain), nw int32 [B]; writes b_lo, b_hi, b_occ [slot0,
+    slot0 + S) (occ = (row0 + row) * W + w, u32) and adds min(nv, S) to
+    n_win and nv > S to n_over (device scalars), in place."""
+    B, W = keys.shape[:2]
+    dev = keys.device
+    pos = torch.arange(S, device=dev)
+    keys_flat = keys.reshape(B * W, 2)
+    offs = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+    offs[1:] = torch.cumsum(nw, dim=0)
+    nv = offs[B]
+    row = torch.clamp(torch.searchsorted(offs[1:], pos, right=True),
+                      max=B - 1)
+    w = pos - offs[row]
+    valid = pos < torch.clamp(nv, max=S)
+    src = torch.clamp(row * W + w, 0, B * W - 1)
+    b_lo[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 0],
+                                          u64.SENTINEL)
+    b_hi[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 1],
+                                          u64.SENTINEL)
+    b_occ[slot0 : slot0 + S] = torch.where(
+        valid, ((row0 + row) * W + w) & u64.U32_MAX, u64.U32_MAX)
+    n_over += nv > S
+    n_win += torch.clamp(nv, max=S)
+
+
+def window_keys_launcher(mh: torch.Tensor, n_min: torch.Tensor, k: int,
+                         append: dict | None = None):
+    """Checks one launch of csrc/window_keys.cu (CUDA tensors) and returns
+    (launch, keys): launch() runs the kernel (no allocation, no host sync,
+    no count) and raises if the launch fails.  Without `append`, mode i:
+    keys is the [B, W, 2] plane allocated here.  With `append` (the
+    keywords of window_keys_append: b_lo, b_hi, b_occ, row0, slot0, S,
+    n_win, n_over), mode ii into those tensors: keys is None."""
+    _check_cuda(mh, torch.int64, "mh")
+    _check_cuda(n_min, torch.int32, "n_min")
+    if mh.dim() != 2 or n_min.shape != (mh.shape[0],):
+        raise ValueError(f"bad shapes {tuple(mh.shape)} / "
+                         f"{tuple(n_min.shape)}")
+    if n_min.device != mh.device:
+        raise ValueError("mh and n_min on different devices")
+    B, M = mh.shape
+    if not 1 <= k <= min(M, WINDOW_KEYS_MAX_K):
+        raise ValueError(f"window_keys takes 1 <= k <= min(M, "
+                         f"{WINDOW_KEYS_MAX_K}), got k={k}, M={M}")
+    dev = mh.device
+    keys = None
+    if append is None:
+        keys = torch.empty((B, M - k + 1, 2), dtype=torch.int64, device=dev)
+        planes = (keys.data_ptr(), None, None, None, 0, 0, None, None)
+    else:
+        a = append
+        for name in ("b_lo", "b_hi", "b_occ", "n_win", "n_over"):
+            _check_cuda(a[name], torch.int64, name)
+            if a[name].device != dev:
+                raise ValueError(f"{name} on {a[name].device}, mh on {dev}")
+        if a["n_win"].numel() != 1 or a["n_over"].numel() != 1:
+            raise ValueError("n_win and n_over must be scalars")
+        slot0, S = a["slot0"], a["S"]
+        if not (all(a[n].dim() == 1 and slot0 + S <= a[n].shape[0]
+                    for n in ("b_lo", "b_hi", "b_occ")) and slot0 >= 0):
+            raise ValueError(f"slot [{slot0}, {slot0 + S}) outside the "
+                             f"buffers")
+        planes = (None,) + tuple(a[n].data_ptr() + 8 * slot0
+                                 for n in ("b_lo", "b_hi", "b_occ")) + (
+            a["row0"], S, a["n_win"].data_ptr(), a["n_over"].data_ptr())
+    lib = _lib("window_keys")
+    args = (mh.data_ptr(), n_min.data_ptr(), B, M, k) + planes + (
+        _stream(dev),)
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.window_keys_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"window_keys launch failed: CUDA error "
+                               f"{err}")
+
+    return launch, keys
+
+
+def window_keys(mh: torch.Tensor, n_min: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Canonical 128-bit keys of every window of k consecutive minimizers,
+    the all-ones sentinel where the window is not valid: the JAX package's
+    `_window_keys_poly` and the sentinel `where` of its count path.
+
+    mh int64 [B, M] (u64 bits), n_min int32 [B].  Returns int64 [B, M - k +
+    1, 2].  CPU tensors take the plain version; CUDA tensors launch
+    csrc/window_keys.cu (mode i)."""
+    if mh.device.type == "cpu":
+        return window_keys_plain(mh, n_min, k)
+    launch, keys = window_keys_launcher(mh, n_min, k)
+    launch()
+    window_keys.launches += 1
+    return keys
+
+
+window_keys.launches = 0
+
+
+def window_keys_append(mh: torch.Tensor, n_min: torch.Tensor, k: int, b_lo,
+                       b_hi, b_occ, *, row0: int, slot0: int, S: int, n_win,
+                       n_over):
+    """The batch's window keys appended to the counter's batch slot: each
+    valid window's key and occ = ((row0 + b) * W + w) & 0xFFFFFFFF at slot
+    slot0 + offs[b] + w (offs the exclusive sum of the valid windows over
+    the batch's rows), [min(nv, S), S) of the slot emptied, min(nv, S)
+    added to n_win and nv > S to n_over (int64 device scalars), all in
+    place: the batch-slot compaction of the JAX package's
+    `make_fused_construct`.
+
+    mh int64 [B, M], n_min int32 [B]; b_lo, b_hi, b_occ int64 [N] with
+    slot0 + S <= N.  CPU tensors take the plain version (window_keys_plain,
+    slot_append_plain); CUDA tensors launch csrc/window_keys.cu (mode ii),
+    which counts on window_keys.launches."""
+    kw = dict(row0=row0, slot0=slot0, S=S, n_win=n_win, n_over=n_over)
+    if mh.device.type == "cpu":
+        slot_append_plain(window_keys_plain(mh, n_min, k),
+                          windows_per_read(n_min, k), b_lo, b_hi, b_occ,
+                          **kw)
+        return
+    launch, _ = window_keys_launcher(
+        mh, n_min, k, dict(b_lo=b_lo, b_hi=b_hi, b_occ=b_occ, **kw))
+    launch()
+    window_keys.launches += 1
 
 
 # --- planning of the two EC kernels ------------------------------------------

@@ -49,6 +49,7 @@ import torch
 
 from . import u64
 from .extract import bloom_check_and_add, extract_count
+from .kernels import window_keys_append
 from .kminmer import canonicalize, fingerprint128, le_rev
 from .pack import unpack_codes
 
@@ -148,7 +149,7 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
         raise ValueError("window coordinates (read row * W + w) pass 32 bits")
     syncmer = ((params.s, params.syncmer_hash_bound) if params.use_syncmers
                else None)
-    pos = torch.arange(S, device=dev)
+    pos = torch.arange(S, device=dev) if bf_on else None
     n_win = torch.zeros((), dtype=torch.int64, device=dev)
     n_over = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(batch_lo, batch_hi):
@@ -160,13 +161,14 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
         out = extract_count(codes, all_lengths[r], l=params.l, k=params.k,
                             hash_bound=params.hash_bound, M=M,
                             already_hpc=params.reads_already_hpc,
-                            syncmer=syncmer,
-                            ref_cuts=params.seq_ref_cuts)
+                            syncmer=syncmer, ref_cuts=params.seq_ref_cuts,
+                            keys=bf_on)
         row0 = read_base + i * B
-        keys_flat = out["keys"].reshape(B * W, 2)
+        slot0 = row0 * w_slot
         if bf_on:
             # the kept windows are no per-read prefix any more: their flat
             # positions, ascending, are the slot's rows
+            keys_flat = out["keys"].reshape(B * W, 2)
             valid_w = (torch.arange(W, device=dev)[None, :]
                        < out["nw"][:, None]).reshape(B * W)
             kept = torch.nonzero(bloom_pass(
@@ -178,32 +180,27 @@ def construct_batches(params, all_codes, all_lengths, buffers, *, B: int,
             row = src // W
             w = src - row * W
             valid = pos < min(S, kept.shape[0])
+            b_lo[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 0],
+                                                  u64.SENTINEL)
+            b_hi[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 1],
+                                                  u64.SENTINEL)
+            b_occ[slot0 : slot0 + S] = torch.where(
+                valid, ((row0 + row) * W + w) & u64.U32_MAX, u64.U32_MAX)
+            n_over += nv > S
+            n_win += torch.clamp(nv, max=S)
         else:
-            # batch-slot compaction: valid windows are a per-read prefix, so
-            # output position p maps to (row, w) via the rank of p in the
-            # cumulative per-read window counts
-            offs = torch.zeros(B + 1, dtype=torch.int64, device=dev)
-            offs[1:] = torch.cumsum(out["nw"], dim=0)
-            nv = offs[B]
-            row = torch.clamp(torch.searchsorted(offs[1:], pos, right=True),
-                              max=B - 1)
-            w = pos - offs[row]
-            valid = pos < torch.clamp(nv, max=S)
-            src = torch.clamp(row * W + w, 0, B * W - 1)
-        slot0 = row0 * w_slot
-        b_lo[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 0],
-                                              u64.SENTINEL)
-        b_hi[slot0 : slot0 + S] = torch.where(valid, keys_flat[src, 1],
-                                              u64.SENTINEL)
-        b_occ[slot0 : slot0 + S] = torch.where(
-            valid, ((row0 + row) * W + w) & u64.U32_MAX, u64.U32_MAX)
+            # batch-slot compaction: valid windows are a per-read prefix,
+            # so each lands at its read's offset in the slot (the
+            # window_keys kernel's mode ii; slot_append_plain on the CPU)
+            window_keys_append(out["mh"], out["n_min"], params.k, b_lo, b_hi,
+                               b_occ, row0=row0, slot0=slot0, S=S,
+                               n_win=n_win, n_over=n_over)
         b_mh[row0 : row0 + B] = out["mh"]
         b_mp[row0 : row0 + B] = out["mp"]
         if with_ext:
             # extent plane biased by -l (see gather_window_meta)
             buffers[5][row0 : row0 + B] = out["mpe"] - params.l
-        n_over += out["overflow"].sum() + (nv > S)
-        n_win += torch.clamp(nv, max=S)
+        n_over += out["overflow"].sum()
     return n_win, n_over
 
 

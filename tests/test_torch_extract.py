@@ -19,9 +19,9 @@ from rust_mdbg_tpu.ops.kminmer import (canonicalize_jax, fingerprint128_jax,
                                        le_rev_jax)
 from rust_mdbg_tpu.ops.pack import unpack_codes_jax
 from rust_mdbg_tpu_torch.ops import u64
-from rust_mdbg_tpu_torch.ops.extract import (capacity, extract_count,
-                                             window_keys_poly)
+from rust_mdbg_tpu_torch.ops.extract import capacity, extract_count
 from rust_mdbg_tpu_torch.ops.hpc import hpc
+from rust_mdbg_tpu_torch.ops.kernels import window_keys_poly_plain
 from rust_mdbg_tpu_torch.ops.kminmer import (canonicalize, fingerprint128,
                                              le_rev)
 from rust_mdbg_tpu_torch.ops.pack import pack_codes_np, unpack_codes
@@ -164,7 +164,7 @@ def test_kminmer_ops_match_jax():
 
     mh = u64.from_numpy(rng.integers(0, 1 << 64, (4, M), dtype=np.uint64),
                         "cpu")
-    keys = window_keys_poly(mh, k, M)
+    keys = window_keys_poly_plain(mh, k, M)
     wins = mh.unfold(1, k, 1)                       # [4, M-k+1, k]
     assert torch.equal(keys, fingerprint128(canonicalize(wins)[0]))
 
