@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--genome-mbp 20]
 
 (`--multihost-worker` is the multihost legs' own worker mode: phase 16
-starts two processes of this script with it.  `--cards 4` runs, on four
+starts two processes of this script with it.  `--construct-ab TREE ...`
+times only the construct kernels of each checkout root given, in that
+order (e.g. a parent tree, this one, this one, the parent), on the one
+card.  `--cards 4` runs, on four
 cards, only `four_card_phase`: `--mesh 4` with a shard a card and four
 multihost processes of one card each over NCCL, against the one-device
 runs; the default run needs one card.)
@@ -28,13 +31,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    kept minimizers read column L - 1, the last column alone), the bench's
    [128, 24576], the sharded [256, 24576], M = 4,192 under --syncmers,
    the tiler's [8, 1049088], odd L, an unaligned row slice, nch * C < M
-   and M == L; window_keys: both modes, the keys plane and the slot
-   append with its counters, at the main path's [512, 256], the bench's
-   [128, 256], M = 4,192, odd M, k = 1, 2, 7, 21, a slot too small for
-   the batch and window coordinates past 2^32 before their u32 mask.
-   The two construct kernels are timed as bare launches queued behind a
-   spin kernel (their device time), as bare launches and through their
-   wrappers);
+   and M == L, with rows whose runs cross the warps' chunk boundaries,
+   and B = 1, 2, 100 and 133; window_keys:
+   both modes, the keys plane and the slot append with its counters, at
+   the main path's [512, 256], the bench's [128, 256], M = 4,192, odd M,
+   k = 1, 2, 7, 21, a slot too small for the batch, window coordinates
+   past 2^32 before their u32 mask, B = 1, 13 and 1,500, rows of M
+   windows beside rows of none and rows of three window groups.  The two
+   construct kernels are timed as bare launches queued behind a spin
+   kernel (their device time; L2 warm, and cold with the cache flushed
+   before each launch) at the main path's and the bench's shapes, beside
+   the launch floor (an empty kernel of the same grid and block shape);
+   as bare launches; through their wrappers, with the wrappers' host time
+   by piece.
+   (`--construct-ab TREE...` runs only those timings, of each source tree
+   in turn, one process a tree);
 3. slice parity: a small synthetic corpus through the port on "cuda" and on
    "cpu" — the .gfa must be byte-identical and the .sequences records equal;
    then the same corpus as pre-HPC'd input (reads_already_hpc=True,
@@ -540,6 +551,34 @@ def queued_kernel_ms(torch, fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def queued_cold_ms(torch, fn, iters: int) -> float:
+    """queued_kernel_ms of fn with the 50 MB L2 flushed before each launch
+    (a 64 MB buffer zeroed), less the flush's own queued time: the launch's
+    device time when its inputs come from device memory."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def both():
+        flush.zero_()
+        fn()
+
+    t = (queued_kernel_ms(torch, both, iters)
+         - queued_kernel_ms(torch, flush.zero_, iters))
+    del flush
+    return t
+
+
+def host_us(fn, iters: int = 300) -> float:
+    """Host time of one call of fn, in microseconds, by the host clock over
+    `iters` calls after three warm-up calls (no synchronisation: the host's
+    own cost of checks, allocation and the enqueue)."""
+    for _ in range(3):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
 def _max_abs_err(np, got, want) -> float:
     """The largest |kernel - plain| over the entries that differ, as
     unsigned 64-bit values for int64 tensors."""
@@ -574,8 +613,14 @@ def _compact_inputs(torch, np, seed: int, B: int, L: int, rate: float, C: int,
     every column, so every chunk over C and n_raw = L; the first chunk
     full, its row over C there with n_raw above M; C + 1 in one chunk and
     nothing else, so slot C reads column L - 1 with n_min = C + 1; only the
-    last column; every 7th column), canon over the whole u64 range (at and
-    above 2^63), and random pos_map / pme when `maps`: CUDA tensors."""
+    last column; every 7th column), and from 12 rows on the edges of the
+    row's split over warps (C + 1 in the chunk that opens the second half,
+    and in the one that opens the second quarter, each a warp's first at
+    48 chunks; 16 columns on both sides of the halves' boundary, a warp
+    boundary there; C + 1 in the last chunk only, so the tail fill writes
+    slot C from column L - 1 after the last warp's gathers), canon over
+    the whole u64 range (at and above 2^63), and random pos_map / pme when
+    `maps`: CUDA tensors."""
     rng = np.random.default_rng(seed)
     sel = rng.random((B, L)) < rate
     if B >= 8:
@@ -588,6 +633,16 @@ def _compact_inputs(torch, np, seed: int, B: int, L: int, rate: float, C: int,
         sel[4] = False
         sel[4, -1] = True
         sel[5, ::7] = True
+    if B >= 12:
+        nch = -(-L // 512)
+        for r, c in ((8, nch // 2), (11, nch // 4)):
+            c0 = c * 512
+            sel[r, c0 : c0 + min(C + 1, L - c0)] = True
+        half = (nch // 2) * 512
+        sel[9, max(0, half - 8) : half + 8] = True
+        sel[10] = False
+        c0 = (nch - 1) * 512
+        sel[10, c0 : c0 + min(C + 1, L - c0)] = True
     canon = rng.integers(0, 1 << 64, (B, L), dtype=np.uint64).view(np.int64)
     out = [torch.from_numpy(sel).cuda(), torch.from_numpy(canon).cuda()]
     if maps:
@@ -600,6 +655,21 @@ def _compact_inputs(torch, np, seed: int, B: int, L: int, rate: float, C: int,
     return out
 
 
+def _compact_timing(torch, kernels, args, kw, cold: bool) -> dict:
+    """Queued device time of the compaction (L2 warm: the same inputs
+    launch after launch; cold: L2 flushed before each), beside the launch
+    floor (an empty kernel of the same grid and block shape)."""
+    B, L = args[0].shape
+    launch, _ = kernels.compact_minimizers_launcher(*args, **kw)
+    out = dict(shape=[B, L], ms=queued_kernel_ms(torch, launch, 50),
+               l2="warm")
+    if cold:
+        out["cold_ms"] = queued_cold_ms(torch, launch, 50)
+    out["floor_ms"] = queued_kernel_ms(
+        torch, kernels.compact_floor_launcher(B, "cuda"), 50)
+    return out
+
+
 def check_compact_minimizers(torch, np, hash_bound: int) -> dict:
     """The compaction kernel vs its plain version, every output exactly, at
     the shapes its legs give it: the main path's [512, 24576] (M = 256,
@@ -608,7 +678,11 @@ def check_compact_minimizers(torch, np, hash_bound: int) -> dict:
     bench's [128, 24576] and the sharded legs' [256, 24576], M = 4,192
     under --syncmers, the tiler's [8, 1049088], odd L and an unaligned row
     slice, nch * C < M, and M == L at a two-level width (a chunk
-    re-planned by core/chunked.doubled_plan) and at odd L."""
+    re-planned by core/chunked.doubled_plan) and at odd L; B = 1, 2, 100
+    and 133 (fewer and more rows than the card has multiprocessors); 12
+    rows whose runs cross the warps' chunk boundaries.  Timed (queued
+    device time) at the main path's and the bench's shapes, L2 warm and
+    cold, beside the launch floor."""
     from rust_mdbg_tpu_torch.ops import kernels
     from rust_mdbg_tpu_torch.ops.extract import capacity
     from rust_mdbg_tpu_torch.params import Params
@@ -626,20 +700,26 @@ def check_compact_minimizers(torch, np, hash_bound: int) -> dict:
               ("odd_L_rows_3:", 25, 6147, capacity(p, 6147), True, 3),
               ("nch_C_below_M", 16, 3072, 2048, True, 0),
               ("M_eq_L_two_level_width", 16, 4096, 4096, True, 0),
-              ("M_eq_L_odd", 9, 1027, 1027, False, 0)]
+              ("M_eq_L_odd", 9, 1027, 1027, False, 0),
+              ("B1", 1, 24576, 256, True, 0),
+              ("B2", 2, 24576, 256, False, 0),
+              ("B100", 100, 24576, 256, True, 0),
+              ("B133", 133, 24576, 256, False, 0),
+              ("warp_edges", 12, 24576, 256, True, 0)]
     for seed, (name, B, L, M, maps, skip) in enumerate(shapes):
         args = [None if a is None else a[skip:] for a in _compact_inputs(
             torch, np, 40 + seed, B, L, 0.006, C, maps)]
-        got = kernels.compact_minimizers(*args, M=M, **kw)
         want = kernels.compact_minimizers_plain(*args, M=M, **kw)
+        got = kernels.compact_minimizers(*args, M=M, **kw)
         cases[f"{name} [{B - skip}, {L}] M={M}"] = _compare(np, got, want)[0]
+        del args, want, got
 
     B, L, M = 512, 24576, capacity(p, 24576)
     adv = _compact_inputs(torch, np, 5, B, L, 0.006, C, True)
+    want = kernels.compact_minimizers_plain(*adv, M=M, **kw)
     cases[f"adversarial [{B}, {L}] M={M}"] = _compare(
-        np, kernels.compact_minimizers(*adv, M=M, **kw),
-        kernels.compact_minimizers_plain(*adv, M=M, **kw))[0]
-    del adv
+        np, kernels.compact_minimizers(*adv, M=M, **kw), want)[0]
+    del adv, want
     codes, lengths = _nthash_batch(np, 7, B, L, 14)
     canon, sel = kernels.nthash_select(torch.from_numpy(codes).cuda(), 14,
                                        hash_bound,
@@ -650,15 +730,54 @@ def check_compact_minimizers(torch, np, hash_bound: int) -> dict:
     got = kernels.compact_minimizers(*args, M=M, **kw)
     torch.cuda.synchronize()
     main_mismatches, max_abs_err = _compare(np, got, want)
-    n_min = got[3]
-    n_gathered = int(n_min.sum())
+    n_gathered = int(got[3].sum())
+    overflow_rows = int(got[4].sum())
     launch, _ = kernels.compact_minimizers_launcher(*args, M=M, **kw)
-    ms = queued_kernel_ms(torch, launch, 50)
+    main_t = _compact_timing(torch, kernels, args, dict(M=M, **kw), True)
+    ms = main_t["ms"]
     launch_ms = cuda_time_ms(launch, 50)
     wrapper_ms = cuda_time_ms(
         lambda: kernels.compact_minimizers(*args, M=M, **kw), 50)
     plain_ms = cuda_time_ms(
         lambda: kernels.compact_minimizers_plain(*args, M=M, **kw), 5)
+    dev = sel.device
+    fn = kernels._lib("compact_minimizers").compact_minimizers_launch
+    cargs, _ = kernels._compact_args(sel, canon, pos, pme, hash_bound, M)
+
+    def alloc():      # the wrapper's outputs: four allocations
+        return (sel.new_empty((B, M), dtype=torch.int64),
+                *sel.new_empty((2, B, M), dtype=torch.int32).unbind(0),
+                sel.new_empty(B, dtype=torch.int32),
+                sel.new_empty(B, dtype=torch.bool))
+
+    def alloc_five():  # PR 13's five torch.empty
+        return (torch.empty((B, M), dtype=torch.int64, device=dev),
+                torch.empty((B, M), dtype=torch.int32, device=dev),
+                torch.empty((B, M), dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev))
+
+    def checks():
+        for t, dt in ((sel, torch.bool), (canon, torch.int64),
+                      (pos, torch.int32), (pme, torch.int32)):
+            kernels._check_cuda(t, dt, "t")
+
+    # the wrapper's host time by piece: the dtype / device / contiguity
+    # checks, the output allocations (and PR 13's five), the slot capacity,
+    # the stream
+    # lookup, the ctypes call alone (15 arguments), the whole launch()
+    host = dict(
+        checks_alloc_us=host_us(lambda: kernels._compact_args(
+            sel, canon, pos, pme, hash_bound, M)),
+        check_us=host_us(checks), alloc_us=host_us(alloc),
+        alloc_five_us=host_us(alloc_five),
+        capacity_us=host_us(lambda: kernels.chunk_slot_capacity(hash_bound)),
+        stream_us=host_us(lambda: kernels._stream(dev)),
+        ctypes_us=host_us(lambda: fn(*cargs)),
+        launch_us=host_us(launch),
+        wrapper_us=host_us(
+            lambda: kernels.compact_minimizers(*args, M=M, **kw)))
+    torch.cuda.synchronize()
     # least time: the selection read once (1 B a position), canon, pos_map
     # and pme read only at the n_min columns gathered (16 B each), the
     # three [B, M] outputs (16 B a slot) and n_min, overflow (5 B a row)
@@ -666,6 +785,26 @@ def check_compact_minimizers(torch, np, hash_bound: int) -> dict:
     nbytes = B * L + 16 * n_gathered + 16 * B * M + 5 * B
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_bound_ms = 8 * B * L / INT32_OPS_PER_S * 1e3
+    del args, want, got, codes, canon, sel, pos, pme
+
+    # the bench's shape: pre-HPC'd reads, no position or extent plane
+    Bb = 128
+    codes, lengths = _nthash_batch(np, 8, Bb, L, 14)
+    bc, bs = kernels.nthash_select(torch.from_numpy(codes).cuda(), 14,
+                                   hash_bound,
+                                   torch.from_numpy(lengths).cuda())
+    bargs = (bs, bc, None, None)
+    bgot = kernels.compact_minimizers(*bargs, M=M, **kw)
+    cases[f"bench_timed [{Bb}, {L}] M={M}"] = _compare(
+        np, bgot, kernels.compact_minimizers_plain(*bargs, M=M, **kw))[0]
+    bench_t = _compact_timing(torch, kernels, bargs, dict(M=M, **kw), True)
+    bench_gathered = int(bgot[3].sum())
+    bench_bytes = Bb * L + 8 * bench_gathered + 12 * Bb * M + 5 * Bb
+    bench_t["bound_ms"] = bench_bytes / HBM_BYTES_PER_S * 1e3
+    bench_t["bound_share"] = bench_t["bound_ms"] / bench_t["ms"]
+    bench_t["wrapper_ms"] = cuda_time_ms(
+        lambda: kernels.compact_minimizers(*bargs, M=M, **kw), 50)
+    del codes, bc, bs, bargs, bgot
     return dict(
         name="compact_minimizers", route="cuda",
         source="rust_mdbg_tpu_torch/csrc/compact_minimizers.cu",
@@ -679,7 +818,8 @@ def check_compact_minimizers(torch, np, hash_bound: int) -> dict:
         bound_share=bound_ms / ms, ops_bound_ms=ops_bound_ms,
         library_ms=None, gbytes_per_s=nbytes / ms / 1e6, shape=[B, L], M=M,
         chunk_cap=C, minimizers=n_gathered,
-        overflow_rows=int(got[4].sum()), cases=cases)
+        overflow_rows=overflow_rows, main=main_t, bench=bench_t, host=host,
+        cases=cases)
 
 
 def _window_rows(torch, np, seed: int, B: int, M: int, k: int, mean: float):
@@ -722,13 +862,45 @@ def _append_pair(torch, kernels, mh, n_min, k, S, row0, plain: bool):
     return planes + cnt
 
 
+def _window_timing(torch, kernels, mh, n_min, k, S, cold: bool) -> dict:
+    """Queued device time of the slot append and of the keys plane at
+    [B, M] (L2 warm; cold: flushed before each launch) beside the launch
+    floor (an empty kernel of the same grid and block shape)."""
+    B, M = mh.shape
+    planes = [torch.empty(S + 64, dtype=torch.int64, device="cuda")
+              for _ in range(3)]
+    cnt = [torch.zeros((), dtype=torch.int64, device="cuda")
+           for _ in range(2)]
+    append = dict(zip(("b_lo", "b_hi", "b_occ", "n_win", "n_over"),
+                      planes + cnt), row0=0, slot0=32, S=S)
+    launch, _ = kernels.window_keys_launcher(mh, n_min, k, append)
+    keys_launch, _ = kernels.window_keys_launcher(mh, n_min, k)
+    out = dict(shape=[B, M], slot=S, l2="warm",
+               ms=queued_kernel_ms(torch, launch, 50),
+               keys_plane_ms=queued_kernel_ms(torch, keys_launch, 50),
+               floor_ms=queued_kernel_ms(
+                   torch, kernels.window_keys_floor_launcher(B, "cuda"), 50))
+    if cold:
+        out["cold_ms"] = queued_cold_ms(torch, launch, 50)
+        out["keys_plane_cold_ms"] = queued_cold_ms(torch, keys_launch, 50)
+    out["wrapper_ms"] = cuda_time_ms(lambda: kernels.window_keys_append(
+        mh, n_min, k, *planes, row0=0, slot0=32, S=S, n_win=cnt[0],
+        n_over=cnt[1]), 50)
+    return out
+
+
 def check_window_keys(torch, np) -> dict:
     """The window-keys kernel vs its plain versions, both modes exactly:
     the keys plane (mode i) and the slot append (mode ii, planes and
     counters) at the main path's [512, 256] (k = 21, its window slots;
-    timed), the bench's [128, 256], M = 4,192 under --syncmers, odd M, k
-    from 1 to 21, a slot too small for the batch, and a read base whose
-    window coordinates pass 2^32 before the u32 mask."""
+    timed), the bench's [128, 256] (timed), M = 4,192 under --syncmers,
+    odd M, k from 1 to 21, a slot too small for the batch, a read base
+    whose window coordinates pass 2^32 before the u32 mask; and at the
+    edges of the split (a row a 128-thread block, two windows a lane):
+    B = 1, B = 13, rows of M windows beside rows of none, rows of three
+    window groups (more than 512 windows), B = 1,500 (more than one
+    16-byte n_min load a thread).  Timed (queued device time) L2 warm and
+    cold, beside the launch floor."""
     from rust_mdbg_tpu_torch.ops import kernels
     from rust_mdbg_tpu_torch.ops.sort_count import window_slot_capacity
     from rust_mdbg_tpu_torch.params import Params
@@ -743,10 +915,19 @@ def check_window_keys(torch, np) -> dict:
               ("odd_M", 37, 97, 21, 40, 0), ("k1", 16, 33, 1, 33, 0),
               ("k2", 16, 33, 2, 32, 0), ("k7", 16, 70, 7, 64, 0),
               ("tight_slot", 64, 256, 21, 20, 0),
-              ("row0_past_2^32", 64, 256, 21, 160, 18_000_000)]
+              ("row0_past_2^32", 64, 256, 21, 160, 18_000_000),
+              ("B1", 1, 256, 21, 240, 0),
+              ("B13_odd", 13, 256, 21, 160, 0),
+              ("full_beside_empty", 16, 256, 21, 240, 0),
+              ("three_groups", 24, 600, 21, 560, 0),
+              ("B1500", 1500, 256, 21, 160, 0)]
     for name, B, M, k, ws, row0 in shapes:
         mh, n_min = _window_rows(torch, np, len(name), B, M, k,
-                                 0.6 * M if name != "tight_slot" else M)
+                                 M if name in ("tight_slot", "three_groups")
+                                 else 0.6 * M)
+        if name == "full_beside_empty":
+            n_min[0::2], n_min[1::2] = M, 0
+            mh[1::2] = 0
         n = _compare(np, (kernels.window_keys(mh, n_min, k),),
                      (kernels.window_keys_plain(mh, n_min, k),))[0]
         n += _compare(np, _append_pair(torch, kernels, mh, n_min, k, B * ws,
@@ -769,15 +950,23 @@ def check_window_keys(torch, np) -> dict:
     append = dict(zip(("b_lo", "b_hi", "b_occ", "n_win", "n_over"), got),
                   row0=0, slot0=32, S=S)
     launch, _ = kernels.window_keys_launcher(mh, n_min, k, append)
-    ms = queued_kernel_ms(torch, launch, 50)
+    main_t = _window_timing(torch, kernels, mh, n_min, k, S, True)
+    ms = main_t["ms"]
     launch_ms = cuda_time_ms(launch, 50)
-    wrapper_ms = cuda_time_ms(lambda: kernels.window_keys_append(
-        mh, n_min, k, *got[:3], row0=0, slot0=32, S=S, n_win=got[3],
-        n_over=got[4]), 50)
-    keys_launch, _ = kernels.window_keys_launcher(mh, n_min, k)
-    keys_ms = queued_kernel_ms(torch, keys_launch, 50)
+    wrapper_ms = main_t["wrapper_ms"]
     plain_ms = cuda_time_ms(lambda: _append_pair(
         torch, kernels, mh, n_min, k, S, 0, True), 5)
+    wfn = kernels._lib("window_keys").window_keys_launch
+    wargs, _ = kernels._window_keys_args(mh, n_min, k, append)
+    host = dict(
+        checks_alloc_us=host_us(lambda: kernels._window_keys_args(
+            mh, n_min, k, append)),
+        ctypes_us=host_us(lambda: wfn(*wargs)),
+        launch_us=host_us(launch),
+        wrapper_us=host_us(lambda: kernels.window_keys_append(
+            mh, n_min, k, *got[:3], row0=0, slot0=32, S=S, n_win=got[3],
+            n_over=got[4])))
+    torch.cuda.synchronize()
     # least time of the append (the main path's mode): the minimizer rows
     # (8 B a slot) and n_min read once, the three slot planes (24 B a
     # slot) written once; operations: ~10 k 32-bit operations a valid
@@ -787,6 +976,20 @@ def check_window_keys(torch, np) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 10 * k * n_valid / INT32_OPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
+
+    # the bench's shape: [128, 256], its window slots
+    Bb = 128
+    Sb = Bb * window_slot_capacity(p, Bb, 24576, M)
+    bmh, bn = _window_rows(torch, np, 22, Bb, M, k, 147.5)
+    cases[f"bench_timed [{Bb}, {M}] k={k} slot {Sb}"] = _compare(
+        np, _append_pair(torch, kernels, bmh, bn, k, Sb, 0, False),
+        _append_pair(torch, kernels, bmh, bn, k, Sb, 0, True))[0]
+    bench_t = _window_timing(torch, kernels, bmh, bn, k, Sb, True)
+    bv = int(kernels.windows_per_read(bn, k).sum())
+    bench_t["bound_ms"] = max(
+        (8 * Bb * M + 4 * Bb + 24 * Sb + 16) / HBM_BYTES_PER_S * 1e3,
+        10 * k * bv / INT32_OPS_PER_S * 1e3)
+    bench_t["bound_share"] = bench_t["bound_ms"] / bench_t["ms"]
     return dict(
         name="window_keys", route="cuda",
         source="rust_mdbg_tpu_torch/csrc/window_keys.cu",
@@ -796,11 +999,94 @@ def check_window_keys(torch, np) -> dict:
         launches=0, max_abs_err=max(keys_err, app_err),
         mismatches=keys_mis + app_mis + sum(cases.values()),
         ms=ms, launch_ms=launch_ms, wrapper_ms=wrapper_ms,
-        keys_plane_ms=keys_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        keys_plane_ms=main_t["keys_plane_ms"], plain_ms=plain_ms,
+        bound_ms=bound_ms,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bound_share=bound_ms / ms, bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
         library_ms=None, shape=[B, M], k=k, slot=S, valid_windows=n_valid,
-        cases=cases)
+        main=main_t, bench=bench_t, host=host, cases=cases)
+
+
+def construct_times(torch, np) -> dict:
+    """Queued device time, bare launch and wrapper time of the construct
+    kernels of the tree this process imported (the same inputs in every
+    tree: chip_smoke.py's generators at fixed seeds), through the
+    launcher and wrapper API every version has: the compaction at the main
+    path's [512, 24576] (raw: position and extent planes) and the bench's
+    [128, 24576] (pre-HPC'd: none), the slot append at [512, 256] and
+    [128, 256] and the keys plane at [512, 256]; every output checked
+    against the plain version.  Run by --construct-ab in one process a
+    tree."""
+    from rust_mdbg_tpu_torch.ops import kernels
+    from rust_mdbg_tpu_torch.ops.sort_count import window_slot_capacity
+    from rust_mdbg_tpu_torch.params import Params
+
+    kernels.build_all(["nthash_select", "compact_minimizers", "window_keys"])
+    p = Params(k=21, l=14, density=0.003)
+    hb, L, M, k = p.hash_bound, 24576, 256, 21
+    C = kernels.chunk_slot_capacity(hb)
+    out, bad = {"tree": os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(kernels.__file__))))}, 0
+    for name, B, seed, maps in (("compact [512, 24576]", 512, 7, True),
+                                ("compact [128, 24576]", 128, 8, False)):
+        codes, lengths = _nthash_batch(np, seed, B, L, 14)
+        canon, sel = kernels.nthash_select(torch.from_numpy(codes).cuda(),
+                                           14, hb,
+                                           torch.from_numpy(lengths).cuda())
+        _, _, pos, pme = _compact_inputs(torch, np, 6, B, L, 0.0, C, True)
+        args = (sel, canon, pos, pme) if maps else (sel, canon, None, None)
+        launch, got = kernels.compact_minimizers_launcher(*args, M=M,
+                                                          hash_bound=hb)
+        launch()
+        bad += _compare(np, got, kernels.compact_minimizers_plain(
+            *args, M=M, hash_bound=hb))[0]
+        out[name] = dict(
+            ms=queued_kernel_ms(torch, launch, 50),
+            launch_ms=cuda_time_ms(launch, 50),
+            wrapper_ms=cuda_time_ms(lambda: kernels.compact_minimizers(
+                *args, M=M, hash_bound=hb), 50))
+    for B, seed in ((512, 21), (128, 22)):
+        S = B * window_slot_capacity(p, B, L, M)
+        mh, n_min = _window_rows(torch, np, seed, B, M, k, 147.5)
+        got = _append_pair(torch, kernels, mh, n_min, k, S, 0, False)
+        bad += _compare(np, got, _append_pair(torch, kernels, mh, n_min, k,
+                                              S, 0, True))[0]
+        append = dict(zip(("b_lo", "b_hi", "b_occ", "n_win", "n_over"),
+                          got), row0=0, slot0=32, S=S)
+        launch, _ = kernels.window_keys_launcher(mh, n_min, k, append)
+        out[f"append [{B}, {M}]"] = dict(
+            ms=queued_kernel_ms(torch, launch, 50),
+            launch_ms=cuda_time_ms(launch, 50),
+            wrapper_ms=cuda_time_ms(lambda: kernels.window_keys_append(
+                mh, n_min, k, *got[:3], row0=0, slot0=32, S=S, n_win=got[3],
+                n_over=got[4]), 50))
+        if B == 512:
+            keys_launch, _ = kernels.window_keys_launcher(mh, n_min, k)
+            bad += _compare(np, (kernels.window_keys(mh, n_min, k),),
+                            (kernels.window_keys_plain(mh, n_min, k),))[0]
+            out[f"keys [{B}, {M}]"] = dict(
+                ms=queued_kernel_ms(torch, keys_launch, 50),
+                launch_ms=cuda_time_ms(keys_launch, 50))
+    out["mismatches"] = bad
+    return out
+
+
+def construct_ab(trees) -> list:
+    """construct_times of each tree in turn, each in a process of its own
+    with that tree first on sys.path (give the order, e.g. parent, change,
+    change, parent): the list of their results."""
+    res = []
+    for tree in trees:
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--construct-times-of", os.path.abspath(tree)],
+            capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise SystemExit(f"construct times of {tree} failed:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        res.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        print(f"construct times: {json.dumps(res[-1])}", flush=True)
+    return res
 
 
 def read_records(prefix: str):
@@ -3501,6 +3787,13 @@ def main() -> int:
                          "the time limit forces it)")
     ap.add_argument("--cards", type=int, default=1, choices=(1, 4),
                     help="4: only the four-card phase (needs four cards)")
+    ap.add_argument("--construct-ab", nargs="+", default=None,
+                    metavar="TREE",
+                    help="only time the construct kernels of each source "
+                         "tree (a checkout's root) in the order given, one "
+                         "process a tree, on the one card")
+    ap.add_argument("--construct-times-of", default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--multihost-worker", nargs=5, default=None,
                     metavar=("OUT_JSON", "READS", "PREFIX", "BATCH_READS",
                              "DEVICE"),
@@ -3510,6 +3803,9 @@ def main() -> int:
         out_json, reads, prefix, batch, device = args.multihost_worker
         return multihost_worker(out_json, reads, prefix, int(batch), device)
 
+    if args.construct_times_of:
+        # that tree's package in place of this one's
+        sys.path.insert(0, args.construct_times_of)
     import torch
 
     if not torch.cuda.is_available():
@@ -3517,6 +3813,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import numpy as np
+
+    if args.construct_times_of:
+        print(json.dumps(construct_times(torch, np)), flush=True)
+        return 0
+    if args.construct_ab:
+        print(nvidia_smi(), flush=True)
+        res = construct_ab(args.construct_ab)
+        print(nvidia_smi(), flush=True)
+        return 1 if any(r["mismatches"] for r in res) else 0
 
     from rust_mdbg_tpu_torch.ops import kernels
     from rust_mdbg_tpu_torch.params import Params

@@ -117,15 +117,20 @@ _ENTRY_POINTS = {
     },
     "compact_minimizers": {
         "compact_minimizers_launch": [_P] * 9 + [_I] * 5 + [_P],
+        "compact_minimizers_floor_launch": [_I, _P],
     },
     "window_keys": {
         "window_keys_launch": [_P, _P] + [_I] * 3 + [_P] * 4
                               + [ctypes.c_longlong] * 2 + [_P] * 3,
+        "window_keys_floor_launch": [_I, _P],
     },
 }
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -151,6 +156,16 @@ def _check_cuda(t: torch.Tensor, dtype, name: str):
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_device(dev, fn, *args) -> int:
+    """fn(*args) with dev the runtime's current device (a ctypes launch
+    goes to the current device); the device guard is entered only when dev
+    is not current already."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 # --- nthash_select ----------------------------------------------------------
@@ -286,6 +301,7 @@ syncmer_select.launches = 0
 COMPACT_CHUNK = 512
 
 
+@functools.lru_cache(maxsize=64)
 def chunk_slot_capacity(hash_bound: int, chunk: int = COMPACT_CHUNK) -> int:
     """Per-chunk slot count for two-level compaction: selection rate ~= 2x
     density, +8 binomial sigmas, rounded up to a multiple of 8, clamped to
@@ -358,14 +374,9 @@ def compact_minimizers_plain(sel: torch.Tensor, canon: torch.Tensor,
     return minim_hash, minim_pos, mpe, n_min, overflow
 
 
-def compact_minimizers_launcher(sel: torch.Tensor, canon: torch.Tensor,
-                                pos_map: torch.Tensor | None = None,
-                                pme: torch.Tensor | None = None, *,
-                                hash_bound: int, M: int):
-    """Checks one launch of csrc/compact_minimizers.cu (CUDA tensors),
-    allocates its outputs and returns (launch, outputs): launch() runs the
-    kernel on them (no allocation, no host sync, no count) and raises if
-    the launch fails.  The outputs are compact_minimizers'."""
+def _compact_args(sel, canon, pos_map, pme, hash_bound, M):
+    """Checks a compaction on CUDA tensors and allocates its outputs:
+    (the launch's arguments, the outputs)."""
     _check_cuda(sel, torch.bool, "sel")
     _check_cuda(canon, torch.int64, "canon")
     if sel.dim() != 2 or canon.shape != sel.shape:
@@ -386,25 +397,60 @@ def compact_minimizers_launcher(sel: torch.Tensor, canon: torch.Tensor,
     dev = sel.device
     two_level = compaction_two_level(L, M)
     C = chunk_slot_capacity(hash_bound) if two_level else COMPACT_CHUNK
-    outs = (torch.empty((B, M), dtype=torch.int64, device=dev),
-            torch.empty((B, M), dtype=torch.int32, device=dev),
-            None if pme is None
-            else torch.empty((B, M), dtype=torch.int32, device=dev),
-            torch.empty(B, dtype=torch.int32, device=dev),
-            torch.empty(B, dtype=torch.bool, device=dev))
-    lib = _lib("compact_minimizers")
-    args = tuple(None if t is None else t.data_ptr()
-                 for t in (sel, canon, pos_map, pme) + outs) + (
-        B, L, M, C, int(two_level), _stream(dev))
+    # fresh outputs every call; the position and extent planes share one
+    # allocation (the wrapper's host time is mostly allocation)
+    if pme is None:
+        planes = (sel.new_empty((B, M), dtype=torch.int32), None)
+    else:
+        planes = sel.new_empty((2, B, M), dtype=torch.int32).unbind(0)
+    outs = (sel.new_empty((B, M), dtype=torch.int64), *planes,
+            sel.new_empty(B, dtype=torch.int32),
+            sel.new_empty(B, dtype=torch.bool))
+    args = (sel.data_ptr(), canon.data_ptr(),
+            None if pos_map is None else pos_map.data_ptr(),
+            None if pme is None else pme.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(),
+            None if pme is None else outs[2].data_ptr(),
+            outs[3].data_ptr(), outs[4].data_ptr(),
+            B, L, M, C, int(two_level), _stream(dev))
+    return args, outs
+
+
+def _launch(dev, fn, args, name: str) -> None:
+    err = _on_device(dev, fn, *args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def compact_minimizers_launcher(sel: torch.Tensor, canon: torch.Tensor,
+                                pos_map: torch.Tensor | None = None,
+                                pme: torch.Tensor | None = None, *,
+                                hash_bound: int, M: int):
+    """Checks one launch of csrc/compact_minimizers.cu (CUDA tensors),
+    allocates its outputs and returns (launch, outputs): launch() runs the
+    kernel on them (no allocation, no host sync, no count) and raises if
+    the launch fails.  The outputs are compact_minimizers'."""
+    args, outs = _compact_args(sel, canon, pos_map, pme, hash_bound, M)
+    fn = _lib("compact_minimizers").compact_minimizers_launch
+    dev = sel.device
 
     def launch():
-        with torch.cuda.device(dev):
-            err = lib.compact_minimizers_launch(*args)
-        if err != 0:
-            raise RuntimeError(f"compact_minimizers launch failed: CUDA "
-                               f"error {err}")
+        _launch(dev, fn, args, "compact_minimizers")
 
     return launch, outs
+
+
+def compact_floor_launcher(B: int, device):
+    """launch() of an empty kernel with the compaction's grid and block
+    shape for B rows on `device`: the card's cost of launching that grid
+    (chip_smoke.py's launch floor)."""
+    dev = torch.device(device)
+    fn = _lib("compact_minimizers").compact_minimizers_floor_launch
+
+    def launch():
+        _launch(dev, fn, (B, _stream(dev)), "compact floor")
+
+    return launch
 
 
 def compact_minimizers(sel: torch.Tensor, canon: torch.Tensor,
@@ -424,9 +470,9 @@ def compact_minimizers(sel: torch.Tensor, canon: torch.Tensor,
     if sel.device.type == "cpu":
         return compact_minimizers_plain(sel, canon, pos_map, pme,
                                         hash_bound=hash_bound, M=M)
-    launch, outs = compact_minimizers_launcher(
-        sel, canon, pos_map, pme, hash_bound=hash_bound, M=M)
-    launch()
+    args, outs = _compact_args(sel, canon, pos_map, pme, hash_bound, M)
+    _launch(sel.device, _lib("compact_minimizers").compact_minimizers_launch,
+            args, "compact_minimizers")
     compact_minimizers.launches += 1
     return outs
 
@@ -436,7 +482,9 @@ compact_minimizers.launches = 0
 
 # --- window_keys ----------------------------------------------------------------
 
-#: shared memory of a window_keys block: (256 + k - 1) words, at most 48 KB
+#: the largest k window_keys takes: the first version's limit (its tile of
+#: 256 + k - 1 words in 48 KB of shared memory), kept so that a k refused
+#: before is refused now
 WINDOW_KEYS_MAX_K = 48 * 1024 // 8 - 255
 
 
@@ -526,14 +574,9 @@ def slot_append_plain(keys: torch.Tensor, nw: torch.Tensor, b_lo, b_hi,
     n_win += torch.clamp(nv, max=S)
 
 
-def window_keys_launcher(mh: torch.Tensor, n_min: torch.Tensor, k: int,
-                         append: dict | None = None):
-    """Checks one launch of csrc/window_keys.cu (CUDA tensors) and returns
-    (launch, keys): launch() runs the kernel (no allocation, no host sync,
-    no count) and raises if the launch fails.  Without `append`, mode i:
-    keys is the [B, W, 2] plane allocated here.  With `append` (the
-    keywords of window_keys_append: b_lo, b_hi, b_occ, row0, slot0, S,
-    n_win, n_over), mode ii into those tensors: keys is None."""
+def _window_keys_args(mh, n_min, k, append):
+    """Checks a window_keys launch on CUDA tensors: (the launch's
+    arguments, the keys plane allocated in mode i, else None)."""
     _check_cuda(mh, torch.int64, "mh")
     _check_cuda(n_min, torch.int32, "n_min")
     if mh.dim() != 2 or n_min.shape != (mh.shape[0],):
@@ -559,25 +602,47 @@ def window_keys_launcher(mh: torch.Tensor, n_min: torch.Tensor, k: int,
         if a["n_win"].numel() != 1 or a["n_over"].numel() != 1:
             raise ValueError("n_win and n_over must be scalars")
         slot0, S = a["slot0"], a["S"]
-        if not (all(a[n].dim() == 1 and slot0 + S <= a[n].shape[0]
-                    for n in ("b_lo", "b_hi", "b_occ")) and slot0 >= 0):
-            raise ValueError(f"slot [{slot0}, {slot0 + S}) outside the "
-                             f"buffers")
-        planes = (None,) + tuple(a[n].data_ptr() + 8 * slot0
-                                 for n in ("b_lo", "b_hi", "b_occ")) + (
-            a["row0"], S, a["n_win"].data_ptr(), a["n_over"].data_ptr())
-    lib = _lib("window_keys")
-    args = (mh.data_ptr(), n_min.data_ptr(), B, M, k) + planes + (
-        _stream(dev),)
+        lo, hi, occ = a["b_lo"], a["b_hi"], a["b_occ"]
+        end = slot0 + S
+        if not (slot0 >= 0 and lo.dim() == 1 and hi.dim() == 1
+                and occ.dim() == 1 and end <= lo.shape[0]
+                and end <= hi.shape[0] and end <= occ.shape[0]):
+            raise ValueError(f"slot [{slot0}, {end}) outside the buffers")
+        planes = (None, lo.data_ptr() + 8 * slot0, hi.data_ptr() + 8 * slot0,
+                  occ.data_ptr() + 8 * slot0, a["row0"], S,
+                  a["n_win"].data_ptr(), a["n_over"].data_ptr())
+    return (mh.data_ptr(), n_min.data_ptr(), B, M, k) + planes + (
+        _stream(dev),), keys
+
+
+def window_keys_launcher(mh: torch.Tensor, n_min: torch.Tensor, k: int,
+                         append: dict | None = None):
+    """Checks one launch of csrc/window_keys.cu (CUDA tensors) and returns
+    (launch, keys): launch() runs the kernel (no allocation, no host sync,
+    no count) and raises if the launch fails.  Without `append`, mode i:
+    keys is the [B, W, 2] plane allocated here.  With `append` (the
+    keywords of window_keys_append: b_lo, b_hi, b_occ, row0, slot0, S,
+    n_win, n_over), mode ii into those tensors: keys is None."""
+    args, keys = _window_keys_args(mh, n_min, k, append)
+    fn = _lib("window_keys").window_keys_launch
+    dev = mh.device
 
     def launch():
-        with torch.cuda.device(dev):
-            err = lib.window_keys_launch(*args)
-        if err != 0:
-            raise RuntimeError(f"window_keys launch failed: CUDA error "
-                               f"{err}")
+        _launch(dev, fn, args, "window_keys")
 
     return launch, keys
+
+
+def window_keys_floor_launcher(B: int, device):
+    """launch() of an empty kernel with window_keys' grid and block shape
+    for B rows on `device` (chip_smoke.py's launch floor)."""
+    dev = torch.device(device)
+    fn = _lib("window_keys").window_keys_floor_launch
+
+    def launch():
+        _launch(dev, fn, (B, _stream(dev)), "window_keys floor")
+
+    return launch
 
 
 def window_keys(mh: torch.Tensor, n_min: torch.Tensor,
@@ -591,8 +656,9 @@ def window_keys(mh: torch.Tensor, n_min: torch.Tensor,
     csrc/window_keys.cu (mode i)."""
     if mh.device.type == "cpu":
         return window_keys_plain(mh, n_min, k)
-    launch, keys = window_keys_launcher(mh, n_min, k)
-    launch()
+    args, keys = _window_keys_args(mh, n_min, k, None)
+    _launch(mh.device, _lib("window_keys").window_keys_launch, args,
+            "window_keys")
     window_keys.launches += 1
     return keys
 
@@ -621,9 +687,10 @@ def window_keys_append(mh: torch.Tensor, n_min: torch.Tensor, k: int, b_lo,
                           windows_per_read(n_min, k), b_lo, b_hi, b_occ,
                           **kw)
         return
-    launch, _ = window_keys_launcher(
+    args, _ = _window_keys_args(
         mh, n_min, k, dict(b_lo=b_lo, b_hi=b_hi, b_occ=b_occ, **kw))
-    launch()
+    _launch(mh.device, _lib("window_keys").window_keys_launch, args,
+            "window_keys")
     window_keys.launches += 1
 
 

@@ -77,13 +77,13 @@ def _dense_unit(l: int, hash_bound: int) -> str:
 
 
 def _reads(seed, B, L, *, hp=0.3, already_hpc=False, plant=None,
-           short=True):
+           short=True, plant_at=512):
     """Raw reads (homopolymer runs with probability hp, N and 'other'
     bases) or, with already_hpc, reads with no two equal neighbours; ragged
     lengths with rows of 0 and 5 bases and a row of L (and, with `short`,
     rows too short for one window); code 5 past each length.  `plant` =
     (l, hash_bound) writes a tandem repeat of _dense_unit over columns
-    [512, 1536) of rows 3 and 4 (row 4 ends with it)."""
+    [plant_at, plant_at + 1024) of rows 3 and 4 (row 4 ends with it)."""
     rng = np.random.default_rng(seed)
     if already_hpc:
         step = rng.integers(1, 4, (B, L)).astype(np.uint8)
@@ -104,8 +104,8 @@ def _reads(seed, B, L, *, hp=0.3, already_hpc=False, plant=None,
     if plant is not None:
         unit = np.array(["ACGT".index(c) for c in _dense_unit(*plant)],
                         dtype=np.uint8)
-        codes[3:5, 512:1536] = np.tile(unit, 256)
-        lengths[3:5] = [L, 1536]
+        codes[3:5, plant_at : plant_at + 1024] = np.tile(unit, 256)
+        lengths[3:5] = [L, plant_at + 1024]
     codes[np.arange(L)[None, :] >= lengths[:, None]] = 5
     return codes, lengths
 
@@ -149,14 +149,32 @@ def _jax_extract(p, M, codes, lengths, **kw):
 
 # --- numpy models of the kernels' work split ----------------------------------
 
-def model_compact(sel, canon, pos_map, pme, hash_bound, M):
-    """csrc/compact_minimizers.cu's split: per row, per 512-column chunk, a
-    16-bit mask a lane, the warp's inclusive scan of the masks' popcounts,
-    the chunk counts capped at C and their exclusive scan (the chunk
-    offsets); each lane's set bits written at offset + chunk rank while the
-    rank is below C and the slot below M; then slots [min(kept, M), n_min)
-    from column L - 1 and zeros above.  numpy in, numpy out; also returns
-    the kept count of each row."""
+def _chunk_warp(c, nch):
+    """The warp that ranks chunk c of a row of nch chunks, numbered over the
+    row's passes: 16 p + w for warp w of pass p, whose chunks are
+    [p0 + w n_p // 16, p0 + (w + 1) n_p // 16) of the pass's n_p."""
+    p = c // 48
+    n_p = min(48, nch - 48 * p)
+    return 16 * p + max(w for w in range(16) if w * n_p // 16 <= c - 48 * p)
+
+
+#: the writer of the slots that csrc/compact_minimizers.cu's tail fill
+#: writes (the block's threads in turn, after every pass)
+TAIL = 99
+
+
+def model_compact(sel, canon, pos_map, pme, hash_bound, M, trace=None):
+    """csrc/compact_minimizers.cu's split.  A block ranks a row in passes
+    of 48 chunks; a pass splits its chunks evenly over 16 warps, at most 3
+    a warp, and a lane holds a 16-bit mask of each.  One warp scan of the
+    lane's popcounts packed 10 bits apart (three chunks a word) ranks the
+    warp's chunks; each warp's capped and raw totals and over-C flag, read
+    in (pass, warp) order, give its offset; each lane keeps the bits ranked
+    below C and placed below M.  The block then fills slots [min(kept, M),
+    n_min) from column L - 1 and zeros above.  numpy in, numpy out; also
+    returns the kept count of each row.  `trace`, a dict, receives `writer`
+    [B, M]: the warp that wrote each slot (_chunk_warp's numbering), TAIL
+    for the tail fill."""
     B, L = sel.shape
     two = kernels.compaction_two_level(L, M)
     C = kernels.chunk_slot_capacity(hash_bound) if two else 512
@@ -167,13 +185,15 @@ def model_compact(sel, canon, pos_map, pme, hash_bound, M):
     n_min = np.zeros(B, np.int32)
     over = np.zeros(B, bool)
     kept_rows = np.zeros(B, np.int64)
+    writer = np.full((B, M), -1, np.int16)
     bits = 1 << np.arange(16)
 
-    def put(b, j, col):
+    def put(b, j, col, r):
         mh[b, j] = canon[b, col]
         mp[b, j] = col if pos_map is None else pos_map[b, col]
         if mpe is not None:
             mpe[b, j] = pme[b, col]
+        writer[b, j] = r
 
     for b in range(B):
         cols = np.zeros(nch * 512, bool)
@@ -181,82 +201,155 @@ def model_compact(sel, canon, pos_map, pme, hash_bound, M):
         lanes = cols.reshape(nch, 32, 16)
         masks = (lanes * bits).sum(axis=2)               # [nch, 32]
         cnt = lanes.sum(axis=2)
-        incl = np.cumsum(cnt, axis=1)                    # the warp scan
-        total = incl[:, -1]
-        kept = np.minimum(total, C)
-        offs = np.concatenate([[0], np.cumsum(kept)[:-1]])
-        for c in range(nch):
-            for lane in range(32):
-                m, r = int(masks[c, lane]), int(incl[c, lane] - cnt[c, lane])
-                while m and r < C:
-                    j = int(offs[c]) + r
-                    if j >= M:
-                        break
-                    put(b, j, c * 512 + lane * 16 + (m & -m).bit_length() - 1)
-                    m &= m - 1
-                    r += 1
-        raw = int(total.sum())
+        # every warp of every pass, in order
+        warps = []
+        for ps in range(max(1, -(-nch // 48))):
+            p0 = 48 * ps
+            n_p = min(48, nch - p0)
+            for w in range(16):
+                q0 = p0 + w * n_p // 16
+                chunks = list(range(q0, p0 + (w + 1) * n_p // 16))
+                assert len(chunks) <= 3
+                packed = np.zeros((1, 32), np.int64)   # one scan word
+                for q, c in enumerate(chunks):
+                    packed[q // 3] += (cnt[c].astype(np.int64)
+                                       << (10 * (q % 3)))
+                incl = np.cumsum(packed, axis=1)       # the warp scans
+                t = [(int(incl[q // 3, -1]) >> (10 * (q % 3))) & 1023
+                     for q in range(len(chunks))]
+                warps.append(dict(warp=16 * ps + w, chunks=chunks,
+                                  excl=incl - packed, t=t,
+                                  kept=sum(min(x, C) for x in t),
+                                  raw=sum(t),
+                                  over=any(x > C for x in t)))
+        before = 0
+        for wp in warps:
+            o = before
+            for q, c in enumerate(wp["chunks"]):
+                for lane in range(32):
+                    rk = (int(wp["excl"][q // 3, lane]) >> (10 * (q % 3))
+                          ) & 1023
+                    s_q = o + rk
+                    lim = min(C - rk, M - s_q)
+                    m = int(masks[c, lane])
+                    for _ in range(max(lim, 0)):
+                        if not m:
+                            break
+                        put(b, s_q, c * 512 + lane * 16
+                            + (m & -m).bit_length() - 1, wp["warp"])
+                        m &= m - 1
+                        s_q += 1
+                o += min(wp["t"][q], C)
+            before += wp["kept"]
+        raw = sum(wp["raw"] for wp in warps)
         n_min[b] = min(raw, M)
-        kept_rows[b] = int(kept.sum())
-        for j in range(min(kept_rows[b], M), n_min[b]):
-            put(b, j, L - 1)
-        over[b] = raw > M or (two and bool((total > C).any()))
+        kept_rows[b] = before
+        for j in range(min(before, M), M):
+            if j < n_min[b]:
+                put(b, j, L - 1, TAIL)
+            else:
+                writer[b, j] = TAIL
+        over[b] = raw > M or (two and any(wp["over"] for wp in warps))
+    if trace is not None:
+        trace["writer"] = writer
     return mh, mp, mpe, n_min, over, kept_rows
 
 
-def model_window_keys(mh, n_min, k):
-    """csrc/window_keys.cu's split, mode i: one window a thread; the
+#: csrc/window_keys.cu's layout: a block a row, whose four warps take
+#: KEY_GROUP windows at once, KEY_LANE_WINDOWS a lane
+KEY_GROUP = 256
+KEY_LANE_WINDOWS = 2
+
+
+def model_window_keys(mh, n_min, k, trace=None):
+    """csrc/window_keys.cu's split, mode i: a block a row; lane l of the
+    row's warp i computes the windows G g + 32 (LW i + h) + l (h < LW, LW
+    = KEY_LANE_WINDOWS windows a lane, interleaved) of group g (G =
+    KEY_GROUP), only below the row's valid windows: the
     reversal flag from the first difference among the first k // 2 pairs
     (unsigned; a palindrome is reversed), the two Horner lanes over the
-    window or its reverse; the sentinel past each read's valid windows."""
+    window or its reverse; the sentinel elsewhere.  `trace`, a dict, receives
+    `groups` [B] (the groups each row's warps computed)."""
     B, M = mh.shape
     W = M - k + 1
+    LW = KEY_LANE_WINDOWS
     keys = np.full((B, W, 2), MASK64, np.uint64)
+    groups = np.zeros(B, np.int64)
     with np.errstate(over="ignore"):
         for b in range(B):
             nw = n_min[b] - k + 1 if n_min[b] > k else 0
-            if not nw:
-                continue
-            v = np.lib.stride_tricks.sliding_window_view(mh[b], k)[:nw]
-            rev = np.ones(nw, bool)
-            decided = np.zeros(nw, bool)
-            for j in range(k // 2):
-                a, c = v[:, j], v[:, k - 1 - j]
-                now = ~decided & (a != c)
-                rev[now] = a[now] > c[now]
-                decided |= now
-            win = np.where(rev[:, None], v[:, ::-1], v)
-            for lane in (0, 1):
-                h = np.full(nw, _OFF[lane], np.uint64)
-                for j in range(k):
-                    h = h * np.uint64(_A[lane]) + win[:, j]
-                keys[b, :nw, lane] = h
+            for g in range(-(-nw // KEY_GROUP)):
+                groups[b] += 1
+                w = (KEY_GROUP * g
+                     + 32 * LW * np.arange(KEY_GROUP // (32 * LW))[
+                         :, None, None]
+                     + 32 * np.arange(LW)[None, :, None]
+                     + np.arange(32)[None, None, :]).ravel()  # [i, h, lane]
+                w = w[w < nw]
+                v = mh[b, w[:, None] + np.arange(k)[None, :]]
+                rev = np.ones(len(w), bool)
+                decided = np.zeros(len(w), bool)
+                for j in range(k // 2):
+                    a, c = v[:, j], v[:, k - 1 - j]
+                    now = ~decided & (a != c)
+                    rev[now] = a[now] > c[now]
+                    decided |= now
+                win = np.where(rev[:, None], v[:, ::-1], v)
+                for lane in (0, 1):
+                    h = np.full(len(w), _OFF[lane], np.uint64)
+                    for j in range(k):
+                        h = h * np.uint64(_A[lane]) + win[:, j]
+                    keys[b, w, lane] = h
+    if trace is not None:
+        trace["groups"] = groups
     return keys
 
 
-def model_append(mh, n_min, k, b_lo, b_hi, b_occ, row0, slot0, S):
-    """csrc/window_keys.cu's split, mode ii, in place on numpy planes:
-    offsets from each read's window count (exclusive sum), each window at
-    slot offs[b] + w below S, the rest of the slot emptied.  Returns the
-    (windows, over-slot) counts the kernel adds."""
+def model_append(mh, n_min, k, b_lo, b_hi, b_occ, row0, slot0, S,
+                 trace=None):
+    """csrc/window_keys.cu's split, mode ii, in place on numpy planes: a
+    block a row, T = KEY_GROUP / KEY_LANE_WINDOWS threads; thread t
+    of every block reads the rows [t R, t R + R) of n_min (R = 4 ceil(B /
+    (4 T))), a warp scan and the warps' totals give the block's row its
+    offset and the batch total; each row's windows at slot offs[b] + w
+    below S; the slot's tail [min(nv, S), S) strided over the grid (block
+    b's thread t from min(nv, S) + b T + t, step B T).  Returns the
+    (windows, over-slot) counts the kernel adds.  `trace`, a dict,
+    receives `offs` and `fillers` (the blocks that wrote the tail)."""
     B, M = mh.shape
     W = M - k + 1
     keys = model_window_keys(mh, n_min, k)
     nw = np.where(n_min > k, n_min - k + 1, 0).astype(np.int64)
-    offs = np.concatenate([[0], np.cumsum(nw)[:-1]])
-    nv = int(nw.sum())
+    T = KEY_GROUP // KEY_LANE_WINDOWS
+    R = 4 * -(-B // (4 * T))
+    mine = np.zeros(T, np.int64)
+    for t in range(T):
+        mine[t] = nw[t * R : t * R + R].sum()
+    wt = mine.reshape(-1, 32).sum(axis=1)                # s_wt
+    incl = np.cumsum(mine.reshape(-1, 32), axis=1).ravel()
+    offs = np.zeros(B, np.int64)
     for b in range(B):
-        w = np.arange(nw[b])
-        p = offs[b] + w
-        keep = p < S
-        b_lo[slot0 + p[keep]] = keys[b, w[keep], 0]
-        b_hi[slot0 + p[keep]] = keys[b, w[keep], 1]
-        b_occ[slot0 + p[keep]] = ((row0 + b) * W + w[keep]) & 0xFFFFFFFF
-    fill = slice(slot0 + min(nv, S), slot0 + S)
-    b_lo[fill] = MASK64
-    b_hi[fill] = MASK64
-    b_occ[fill] = 0xFFFFFFFF
-    return min(nv, S), int(nv > S)
+        t = b // R
+        part = incl[t] - mine[t] + nw[t * R : b].sum()   # s_part
+        offs[b] = wt[: t // 32].sum() + part
+    nv = int(wt.sum())
+    assert np.array_equal(offs, np.concatenate([[0], np.cumsum(nw)[:-1]]))
+    for b in range(B):
+        limit = int(max(0, min(nw[b], S - offs[b])))
+        w = np.arange(limit)
+        p = slot0 + offs[b] + w
+        b_lo[p] = keys[b, w, 0]
+        b_hi[p] = keys[b, w, 1]
+        b_occ[p] = ((row0 + b) * W + w) & 0xFFFFFFFF
+    fill0 = min(nv, S)
+    tail = np.arange(fill0, S)
+    fillers = sorted(set(((tail - fill0) // T % B).tolist()))
+    b_lo[slot0 + tail] = MASK64
+    b_hi[slot0 + tail] = MASK64
+    b_occ[slot0 + tail] = 0xFFFFFFFF
+    if trace is not None:
+        trace.update(offs=offs, fillers=fillers, threads=T)
+    return fill0, int(nv > S)
 
 
 def _np(t):
@@ -397,6 +490,79 @@ def test_compaction_m_eq_l_model_matches_plain(L, M):
     assert not kernels.compaction_two_level(L, M)
 
 
+# --- the compaction's warp edges --------------------------------------------
+
+#: (id, L, density, plant_at or None, rows kept of _reads' 12): kept columns
+#: of one row on both sides of a warp boundary; a chunk over C ranked by a
+#: warp past the first (chunk 5 of 8, a chunk a warp); a chunk over C as
+#: the third of a warp's three chunks (the main path's width, where every
+#: warp holds three); slots [kept, n_min) from column L - 1 written by the
+#: tail fill; B = 1 and B = 2; a row of 49 chunks in two passes; the flat
+#: branch at odd L (three chunks over three warps)
+WARP_EDGES = [
+    ("straddle_warps", 4096, 0.02, None, slice(None)),
+    ("over_c_later_warp", 4096, 0.02, 2560, slice(None)),
+    ("over_c_third_of_warp", 48 * 512, 0.02, 1024, slice(2, 6)),
+    ("l_minus_1_tail", 4096, 0.02, 512, slice(None)),
+    ("b1", 4096, 0.02, 512, slice(3, 4)),
+    ("b2", 4096, 0.02, 512, slice(2, 4)),
+    ("main_width_tail", 48 * 512, 0.02, 512, slice(2, 6)),
+    ("two_passes", 49 * 512, 0.02, 512, slice(2, 6)),
+    ("flat_odd_l", 1027, 0.05, None, slice(None)),
+]
+
+
+@pytest.mark.parametrize("edge", WARP_EDGES, ids=[e[0] for e in WARP_EDGES])
+def test_compaction_warp_edges_match_jax(edge, models):
+    """The compaction model at the edges of its split of a row over warps
+    and passes, in the wrapper's place: the count path equals the JAX
+    package's, and the edge the case names is there."""
+    name, L, d, plant_at, rows = edge
+    # planted rows are pre-HPC'd, so that the repeat stays at its columns
+    p = Params(k=7, l=10, density=d, reads_already_hpc=plant_at is not None)
+    plant = None if plant_at is None else (p.l, p.hash_bound)
+    codes, lengths = _reads(L + len(name), 12, L, plant=plant,
+                            plant_at=plant_at or 512,
+                            already_hpc=p.reads_already_hpc)
+    codes, lengths = codes[rows].copy(), lengths[rows].copy()
+    M = capacity(p, L)
+    _check_count_path(p, M, codes, lengths)
+    s = _selection(p, M, codes, lengths)
+    trace = {}
+    *_, n_min, over, kept = model_compact(s["sel"], s["canon"], s["pos_map"],
+                                          s["pme"], p.hash_bound, M,
+                                          trace=trace)
+    writer = trace["writer"]
+    B = codes.shape[0]
+    nch = -(-L // 512)
+    two = kernels.compaction_two_level(L, M)
+    C = kernels.chunk_slot_capacity(p.hash_bound) if two else 512
+    counts = np.zeros((B, nch * 512), bool)
+    counts[:, :L] = s["sel"]
+    counts = counts.reshape(B, nch, 512).sum(axis=2)
+    if name.startswith(("straddle", "flat")):
+        assert any(len(set(writer[b, : min(kept[b], M)])) > 1
+                   for b in range(B))
+    if name.startswith("over_c"):
+        rb, cb = np.nonzero(counts > C)
+        assert len(cb) > 0 and over[rb].all()
+        if name == "over_c_later_warp":
+            assert all(_chunk_warp(c, nch) > _chunk_warp(0, nch) for c in cb)
+        else:
+            # every warp holds three chunks; the repeat's first chunk over
+            # C is a warp's third, its second the next warp's first
+            assert any(_chunk_warp(c, nch) == _chunk_warp(c - 2, nch)
+                       for c in cb)
+            assert len({_chunk_warp(c, nch) for c in cb}) > 1
+    if name.startswith(("l_minus_1", "b1", "b2", "main_width", "two_passes")):
+        short = np.nonzero(kept < n_min)[0]
+        assert len(short) > 0
+        for b in short:
+            assert (writer[b, kept[b] : n_min[b]] == TAIL).all()
+    if name.startswith("two_passes"):
+        assert nch > 48 and (writer >= 16).any()
+
+
 # --- the window keys ------------------------------------------------------------
 
 def _minimizer_rows(seed, B, M, k):
@@ -453,6 +619,89 @@ def test_window_keys_on_reads(case, models):
     valid = np.arange(W)[None, :] < ot["nw"].numpy()[:, None]
     if "plant" in dict(next(c for c in CASES if c[0] == case)[3]):
         assert (pal & valid).any()
+
+
+#: (id, B, M, k, n_min pattern): an odd B; rows of M windows beside rows of
+#: none; B = 1; k = 1; rows of three groups of 256 windows; rows whose
+#: n_min a thread past the first warp reads (B > 128); two 16-byte n_min
+#: loads a thread (B > 512)
+WINDOW_EDGES = [
+    ("b13_odd", 13, 64, 7, None),
+    ("full_beside_empty", 16, 96, 21, "alternate"),
+    ("b1", 1, 40, 7, "full"),
+    ("k1_b9", 9, 12, 1, None),
+    ("three_groups", 10, 700, 21, "full"),
+    ("owner_past_first_warp", 264, 40, 7, None),
+    ("two_loads_a_thread", 600, 24, 7, None),
+]
+
+
+def _edge_rows(edge):
+    name, B, M, k, pattern = edge
+    mh, n_min = _minimizer_rows(len(name), max(B, 9), M, k)
+    mh, n_min = mh[:B].copy(), n_min[:B].copy()
+    if pattern == "alternate":
+        n_min[0::2], n_min[1::2] = M, 0
+    elif pattern == "full":
+        n_min[:] = M
+    mh[np.arange(M)[None, :] >= n_min[:, None]] = 0
+    return mh, n_min
+
+
+@pytest.mark.parametrize("slot", ["roomy", "tight"])
+@pytest.mark.parametrize("edge", WINDOW_EDGES, ids=[e[0] for e in WINDOW_EDGES])
+def test_window_keys_edges_match_jax(edge, slot):
+    """The window-key models at the new split's edges against the JAX
+    package: the keys plane against `_window_keys_poly` masked as the count
+    path masks it, and the slot append against those keys placed by the
+    function's rule (each read's windows at its offset, the tail emptied,
+    the counts); the plain append equal too."""
+    name, B, M, k, _ = edge
+    mh, n_min = _edge_rows(edge)
+    W = M - k + 1
+    kj = np.asarray(jax.jit(_window_keys_poly, static_argnums=(1, 2))(
+        jnp.asarray(mh), k, M))
+    nw = np.where(n_min > k, n_min - k + 1, 0)
+    valid = np.arange(W)[None, :] < nw[:, None]
+    want = np.where(valid[..., None], kj, np.uint64(MASK64))
+    trace = {}
+    assert np.array_equal(want, model_window_keys(mh, n_min, k, trace))
+    assert np.array_equal(trace["groups"], -(-nw // KEY_GROUP))
+    if name == "three_groups":
+        assert (trace["groups"] == 3).all()
+
+    nv = int(nw.sum())
+    S = nv + 37 if slot == "roomy" else max(nv // 2, 1)
+    slot0, row0, N = 5, 3 << 30, S + 12
+    exp = [np.full(N, 7, np.uint64) for _ in range(3)]
+    offs = np.concatenate([[0], np.cumsum(nw)[:-1]])
+    for b in range(B):
+        for w in range(nw[b]):
+            q = offs[b] + w
+            if q < S:
+                exp[0][slot0 + q], exp[1][slot0 + q] = kj[b, w]
+                exp[2][slot0 + q] = ((row0 + b) * W + w) & 0xFFFFFFFF
+    exp[0][slot0 + min(nv, S) : slot0 + S] = MASK64
+    exp[1][slot0 + min(nv, S) : slot0 + S] = MASK64
+    exp[2][slot0 + min(nv, S) : slot0 + S] = 0xFFFFFFFF
+    got = [np.full(N, 7, np.uint64) for _ in range(3)]
+    trace = {}
+    counts = model_append(mh, n_min, k, *got, row0, slot0, S, trace)
+    assert counts == (min(nv, S), int(nv > S))
+    for g, e in zip(got, exp):
+        assert np.array_equal(g, e)
+    tail = S - min(nv, S)
+    assert len(trace["fillers"]) == min(B, -(-tail // trace["threads"]))
+
+    planes = [u64.from_numpy(np.full(N, 7, np.uint64), "cpu")
+              for _ in range(3)]
+    cnt = [torch.zeros((), dtype=torch.int64) for _ in range(2)]
+    t, n = u64.from_numpy(mh, "cpu"), torch.from_numpy(n_min)
+    kernels.window_keys_append(t, n, k, *planes, row0=row0, slot0=slot0,
+                               S=S, n_win=cnt[0], n_over=cnt[1])
+    for g, e in zip(planes, exp):
+        assert np.array_equal(u64.to_numpy(g), e)
+    assert (int(cnt[0]), int(cnt[1])) == counts
 
 
 # --- the slot append ------------------------------------------------------------
@@ -545,21 +794,32 @@ def test_compact_minimizers_kernel_on_card():
         for g, w in zip(kernels.compact_minimizers(*sliced, **kw),
                         kernels.compact_minimizers_plain(*sliced, **kw)):
             assert (g is None and w is None) or torch.equal(g, w), case
+        # one row alone, through the launcher
+        part = [None if a is None else a[3:4] for a in args]
+        launch, got = kernels.compact_minimizers_launcher(*part, **kw)
+        launch()
+        for g, w in zip(got, kernels.compact_minimizers_plain(*part, **kw)):
+            assert (g is None and w is None) or torch.equal(g, w), case
 
 
 @pytest.mark.cuda
 def test_window_keys_kernel_on_card():
     """csrc/window_keys.cu against its plain versions, the keys plane and
-    the slot append (a roomy slot and one too small), at k = 1 to 21."""
+    the slot append (a roomy slot, one too small and an empty one), at k =
+    1 to 21, at the edges of the split (WINDOW_EDGES) and at B > 1,024."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for k, M in [(1, 12), (2, 17), (7, 64), (21, 96), (21, 600)]:
-        mh, n_min = _minimizer_rows(k + 100, 40, M, k)
+    rows = [_minimizer_rows(k + 100, 40, M, k) + (k,)
+            for k, M in [(1, 12), (2, 17), (7, 64), (21, 96), (21, 600)]]
+    rows += [_edge_rows(e) + (e[3],) for e in WINDOW_EDGES]
+    rows += [_minimizer_rows(7, 1500, 64, 7) + (7,)]   # B > 1,024
+    for mh, n_min, k in rows:
+        M = mh.shape[1]
         t, n = u64.from_numpy(mh, "cuda"), torch.from_numpy(n_min).cuda()
         assert torch.equal(kernels.window_keys(t, n, k),
                            kernels.window_keys_plain(t, n, k)), (k, M)
         W = M - k + 1
-        for S in (40 * W, 7 * W + 3):
+        for S in (len(n_min) * W, 7 * W + 3, 0):
             res = []
             for fn in (kernels.window_keys_append, None):
                 planes = [torch.full((S + 50 * W,), -7, dtype=torch.int64,
