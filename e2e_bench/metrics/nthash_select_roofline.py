@@ -1,0 +1,9 @@
+"""nthash_select's share of the card's memory roofline in one profiled job: the
+least time its bytes need (rooflines/nthash_select.py) over its summed device
+time."""
+
+from ..rooflines import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "nthash_select")
