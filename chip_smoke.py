@@ -64,7 +64,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. the construct breakdown: torch.profiler over one chunk of that corpus
    (construct_batches + finalize_chunk, after a warm-up), device time by
    kernel name, kernel launches a batch, and the device's busy time over
-   the profiled window and over the same chunk's unprofiled wall time;
+   the profiled window (beside the same chunk's unprofiled wall time);
 6. whole-run parity: the parity corpus through `assemble_device_table` on
    "cuda" and on "cpu" as raw reads, as pre-HPC'd reads (in batches of 16
    reads, so that enough chunks flow for phase 1 to fire) and as pre-HPC'd
@@ -1267,9 +1267,9 @@ def construct_breakdown(tmp: str, Params) -> dict:
     driver's own steps (plan_chunks, host_feed, to_device, new_counter,
     construct_chunk), outside assemble_device_chunked.
 
-    The busy share is given twice: over the profiled window, which tracing
-    the host's ~7,000 op launches stretches, so it reads low; and over the
-    median unprofiled wall time of the same chunk."""
+    The busy share is over the profiled window, which tracing the host's
+    ~7,000 op launches stretches, so it reads low; the median unprofiled
+    wall time of the same chunk is given beside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1350,7 +1350,6 @@ def construct_breakdown(tmp: str, Params) -> dict:
         device_events=len(spans),
         device_us=sum(t for t, _ in by_name.values()), busy_us=busy,
         busy_share=busy / wall_us if spans else None,
-        busy_share_unprofiled=busy / unprofiled_us if spans else None,
         nthash_select_us=sum(t for k, (t, _) in by_name.items()
                              if "nthash_select" in k),
         top=[dict(name=short_kernel_name(k), us=t, calls=c)
@@ -1989,7 +1988,7 @@ def syncmer_breakdown(tmp: str, Params) -> dict:
     """Device time by torch op over one [512, 24576] batch of main.fa
     through the count-path extraction under --syncmers (what the chunked
     driver runs per batch), under torch.profiler after a warm-up; the hand
-    kernel's share, and the busy share of the unprofiled wall."""
+    kernel's share, and the unprofiled wall beside the profiled window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2062,7 +2061,6 @@ def syncmer_breakdown(tmp: str, Params) -> dict:
         window_us=wall_us, unprofiled_us=unprofiled_us,
         device_events=len(spans), busy_us=busy,
         device_us=sum(b - a for a, b in spans),
-        busy_share_unprofiled=busy / unprofiled_us if spans else None,
         syncmer_select_us=kernel_us,
         syncmer_select_share=kernel_us / busy if busy else None,
         top_ops=[dict(op=k, us=t, calls=c) for k, t, c in ops[:12]])
@@ -3729,7 +3727,6 @@ def bench_leg(tmp: str, leg: str, genome_mbp: int, use_bf: bool) -> dict:
         out.update(rep_kernel_launches=prof["kernel_launches"],
                    launches_a_batch=prof["kernel_launches"] / b.n_batches,
                    rep_busy_us=prof["busy_us"],
-                   rep_busy_share_unprofiled=prof["busy_share_unprofiled"],
                    rep_kernels=prof["kernels"])
     del b, res
     if DEVICE == "cuda":

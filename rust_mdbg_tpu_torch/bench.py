@@ -31,7 +31,7 @@ driver), MDBG_BENCH_DETAIL (the tail's split on standard error).
 `PhaseTimer.phase(..., profile_dir=DIR)` (a Chrome trace in DIR) and prints,
 on lines before the JSON line, the rep's seconds by stage, the ten kernels
 with the most device time, the device's busy share of the rep's wall and
-its five longest idle gaps with the stages open across each: the
+its five longest idle gaps with the spans open across each: the
 counterpart of profiling/trace_loop.py and profile_bench.py's stage split.
 
 It runs on the card unless --device cpu is given (the plain torch versions
@@ -61,7 +61,7 @@ from .ops.sort_count import (DeviceNodeCounter, construct_batches,
                              counter_flags, window_slot_capacity)
 from .params import Params
 from .utils.seq import CODE_BASE
-from .utils.timing import PhaseTimer, card_info
+from .utils.timing import PhaseTimer, card_info, trace_us
 
 BASELINE_GBPS = 114.4 / 411.0  # HG002 52x HPC input / 6m51s (8 threads)
 ERR_RATE = float(os.environ.get("MDBG_BENCH_ERR", "0.003"))
@@ -119,11 +119,10 @@ class _Phases:
     """The emission phases before the last: each is resolved (the prefix
     reduction, which blocks its thread in `torch.nonzero`) and emitted on a
     helper thread, one after another, while the main thread goes on
-    launching the construct loop.  Spans are (stage, start, end) in
-    perf_counter seconds."""
+    launching the construct loop.  Each step is a span on `timer`."""
 
-    def __init__(self, counter, em, t0: float, spans: list):
-        self.counter, self.em, self.t0, self.spans = counter, em, t0, spans
+    def __init__(self, counter, em, t0: float, timer: PhaseTimer):
+        self.counter, self.em, self.t0, self.timer = counter, em, t0, timer
         self.row_lo = 0
         self.emit1 = 0.0  # seconds from t0 to the end of phase 1's emit
         self._thread = None
@@ -141,17 +140,15 @@ class _Phases:
             if self._error is not None:
                 return
             try:
-                a = time.perf_counter()
-                ph = self.counter.finalize_resolve(
-                    pending, lazy=True, row_lo=self.row_lo, gk_mode="none")
-                b = time.perf_counter()
-                self.em.emit_phase(ph)
-                c = time.perf_counter()
+                with self.timer.phase(f"phase-{n} finalize"):
+                    ph = self.counter.finalize_resolve(
+                        pending, lazy=True, row_lo=self.row_lo,
+                        gk_mode="none")
+                with self.timer.phase(f"phase-{n} emit"):
+                    self.em.emit_phase(ph)
                 self.row_lo = ph.n_pass
-                self.spans += [(f"phase-{n} finalize", a, b),
-                               (f"phase-{n} emit", b, c)]
                 if n == 1:
-                    self.emit1 = c - self.t0
+                    self.emit1 = time.perf_counter() - self.t0
             except BaseException as e:  # raised on the main thread
                 self._error = e
 
@@ -263,82 +260,81 @@ class Bench:
             self.counter.buffers[-1].zero_()
 
     def run_once(self) -> dict:
-        """One phased construction.  Returns the rep's timings (bench.py's
-        wall, loop, construct, seqw, emit1 seconds, `stages`: the seconds
-        of each stage, and `spans`: (stage, start, end) in perf_counter
-        seconds), the GFA stats `g`, `windows`, `uniques` and the edge
-        join that made the edges."""
+        """One phased construction, a `job` span with a span a stage.
+        Returns the rep's timings (bench.py's wall, loop, construct, seqw,
+        emit1 seconds, `stages`: the seconds of each span name) and the
+        span record (`spans`, `clock`: utils/timing.PhaseTimer's), the GFA
+        stats `g`, `windows`, `uniques` and the edge join that made the
+        edges."""
         B, counter = self.B, self.counter
         self.reset_bf()
         remove_stale(self.prefix)
         _sync(self.dev)
-        spans: list = []
-        t0 = time.perf_counter()
-        em = PhasedEmitter(self.prefix, self.params,
-                           self.reads_ascii.reshape(-1), self.row_off,
-                           cap_hint=1 << 18, device_join=True)
-        phases = _Phases(counter, em, t0, spans)
-        overs = []
-        prev = 0
-        try:
+        timer = PhaseTimer()
+        with timer.job():
+            t0 = time.perf_counter()
+            em = PhasedEmitter(self.prefix, self.params,
+                               self.reads_ascii.reshape(-1), self.row_off,
+                               cap_hint=1 << 18, device_join=True)
+            phases = _Phases(counter, em, t0, timer)
+            overs = []
+            prev = 0
             try:
-                for hi in self.bounds:
-                    overs.append(self._construct(prev, hi)[1])
-                    if hi < self.n_batches:
-                        # bound to the prefix as it stands; later
-                        # constructs write only rows past it (ops/
-                        # sort_count's invariant)
-                        phases.start(counter.finalize_dispatch(
-                            prefix_rows=hi * B * self.W_slot))
-                    prev = hi
-            finally:
-                phases.join()
-            n_over = sum(int(o) for o in overs)
-            t_loop = time.perf_counter() - t0
-            nodes = counter.finalize_resolve(
-                counter.finalize_dispatch(), lazy=True, row_lo=phases.row_lo,
-                gk_mode="device")
-            t_construct = time.perf_counter() - t0
-            if n_over:
-                raise RuntimeError(
-                    f"{n_over} reads or batches overflowed their minimizer "
-                    "or window slots")
-            t_host0 = time.perf_counter()
-            nodes.prefetch_full("count")  # comes down under the tail emission
-            pot = counter.edge_join(nodes)
-            em.emit_phase(nodes)
-            t_tail_emit = time.perf_counter() - t_host0
-            counts = nodes.fetch_full("count")
-            t_counts = time.perf_counter() - t_host0 - t_tail_emit
-            g = em.finish(counts, pot=pot)
-        except BaseException:
-            em.gfa.abort()
-            for t in em.writers:
-                t.join()
-            raise
-        n_windows = int(counts.sum())
-        t_seqw = time.perf_counter() - t_host0
-        t1 = time.perf_counter()
-        t_loop_end, t_fin_end = t0 + t_loop, t0 + t_construct
-        spans += [("loop", t0, t_loop_end),
-                  ("final finalize", t_loop_end, t_fin_end),
-                  ("tail emit", t_host0, t_host0 + t_tail_emit),
-                  ("counts", t_host0 + t_tail_emit,
-                   t_host0 + t_tail_emit + t_counts),
-                  ("finish+join", t_host0 + t_tail_emit + t_counts, t1)]
+                with timer.phase("loop"):
+                    try:
+                        for hi in self.bounds:
+                            overs.append(self._construct(prev, hi)[1])
+                            if hi < self.n_batches:
+                                # bound to the prefix as it stands; later
+                                # constructs write only rows past it (ops/
+                                # sort_count's invariant)
+                                phases.start(counter.finalize_dispatch(
+                                    prefix_rows=hi * B * self.W_slot))
+                            prev = hi
+                    finally:
+                        phases.join()
+                    n_over = sum(int(o) for o in overs)
+                t_loop = time.perf_counter() - t0
+                with timer.phase("final finalize"):
+                    nodes = counter.finalize_resolve(
+                        counter.finalize_dispatch(), lazy=True,
+                        row_lo=phases.row_lo, gk_mode="device")
+                t_construct = time.perf_counter() - t0
+                if n_over:
+                    raise RuntimeError(
+                        f"{n_over} reads or batches overflowed their "
+                        "minimizer or window slots")
+                t_host0 = time.perf_counter()
+                with timer.phase("tail emit"):
+                    # the counts come down under the tail emission
+                    nodes.prefetch_full("count")
+                    pot = counter.edge_join(nodes)
+                    em.emit_phase(nodes)
+                t_tail_emit = time.perf_counter() - t_host0
+                with timer.phase("counts"):
+                    counts = nodes.fetch_full("count")
+                t_counts = time.perf_counter() - t_host0 - t_tail_emit
+                with timer.phase("finish+join"):
+                    g = em.finish(counts, pot=pot)
+                    n_windows = int(counts.sum())
+            except BaseException:
+                em.gfa.abort()
+                for t in em.writers:
+                    t.join()
+                raise
+            t_seqw = time.perf_counter() - t_host0
+            t1 = time.perf_counter()
         if os.environ.get("MDBG_BENCH_DETAIL"):
             print(f"# tail: n_tail={nodes.n_new} emit_phase={t_tail_emit:.3f}"
                   f" counts={t_counts:.3f}"
                   f" finish+join={t_seqw - t_tail_emit - t_counts:.3f}",
                   file=sys.stderr)
-        stages: dict = {}
-        for name, a, b in spans:
-            stages[name] = stages.get(name, 0.0) + (b - a)
+        rec = timer.stats()
         return dict(wall=t1 - t0, loop=t_loop, construct=t_construct,
-                    seqw=t_seqw, emit1=phases.emit1, stages=stages,
-                    spans=spans, g=g, windows=n_windows,
-                    uniques=nodes.n_unique, edge_join=em.edge_join,
-                    n_over=n_over)
+                    seqw=t_seqw, emit1=phases.emit1, stages=rec["phases"],
+                    spans=rec["spans"], clock=timer.clock, g=g,
+                    windows=n_windows, uniques=nodes.n_unique,
+                    edge_join=em.edge_join, n_over=n_over)
 
     def device_loop(self) -> float:
         """Seconds of the construct loop alone over every batch, on refilled
@@ -402,17 +398,14 @@ class Bench:
     def profile_rep(self, profile_dir: str) -> dict:
         """One more rep under torch.profiler (PhaseTimer.phase with
         profile_dir, which writes the Chrome trace), read back by
-        trace_breakdown against the rep's own stage spans."""
-        timer = PhaseTimer()
-        with timer.phase("bench_rep", profile_dir=profile_dir):
-            with torch.profiler.record_function("bench_rep"):
-                anchor_t = time.perf_counter()
-                rep = self.run_once()
+        trace_breakdown against the rep's own spans."""
+        with PhaseTimer().phase("bench_rep", profile_dir=profile_dir):
+            rep = self.run_once()
             _sync(self.dev)
         trace = max(glob.glob(os.path.join(profile_dir,
                                            "bench_rep.*.pt.trace.json")),
                     key=os.path.getmtime)
-        out = trace_breakdown(trace, rep["spans"], "bench_rep", anchor_t)
+        out = trace_breakdown(trace, rep["spans"], rep["clock"])
         out["stages_s"] = rep["stages"]
         out["wall_s"] = rep["wall"]
         out["trace"] = trace
@@ -428,25 +421,24 @@ def short_kernel_name(name: str, width: int = 120) -> str:
     return name[:width]
 
 
-def trace_breakdown(trace_path: str, spans, anchor: str, anchor_t: float,
+def trace_breakdown(trace_path: str, spans, clock: tuple,
                     n_kernels: int = 10, n_gaps: int = 5) -> dict:
     """Device time of a Chrome trace over the window the spans cover.
 
-    spans: (stage, start, end) in perf_counter seconds; the trace's event
-    named `anchor` (a record_function range) began at perf_counter
-    anchor_t, which places the spans on the trace's clock.  Returns the
-    `n_kernels` kernels with the most device time (name, us, launches) and
-    the count of every kernel launch in the window, the device's busy
-    microseconds (the union of kernels, copies and fills)
-    and share of the window, and the `n_gaps` longest idle gaps (us, their
-    start in seconds into the window, and the stages open across them)."""
+    spans: a PhaseTimer's span dicts, and clock its `clock` pair, which
+    with the trace's baseTimeNanoseconds places them on the trace's clock
+    (utils/timing.trace_us).  Returns the `n_kernels` kernels with the
+    most device time (name, us, launches) and the count of every kernel
+    launch in the window, the device's busy microseconds (the union of
+    kernels, copies and fills) and share of the window, and the `n_gaps`
+    longest idle gaps (us, their start in seconds into the window, and the
+    spans open across them)."""
     with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
-    a = next(e for e in events if e.get("name") == anchor
-             and not e.get("cat", "").startswith("gpu"))
-    off = float(a["ts"]) - anchor_t * 1e6
-    spans_us = [(name, s * 1e6 + off, t * 1e6 + off) for name, s, t in spans]
+        trace = json.load(f)
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    base = int(trace["baseTimeNanoseconds"])
+    spans_us = [(sp["name"], trace_us(clock, sp["start_ns"], base),
+                 trace_us(clock, sp["end_ns"], base)) for sp in spans]
     lo = min(s for _, s, _ in spans_us)
     hi = max(t for _, _, t in spans_us)
 
@@ -515,10 +507,6 @@ def run_protocol(bench: Bench, repeats: int = 3,
     profile = None
     if profile_dir:
         profile = bench.profile_rep(profile_dir)
-        # tracing stretches the rep's host side: the same device time over
-        # the best unprofiled rep's wall
-        profile["busy_share_unprofiled"] = (profile["busy_us"] / 1e6
-                                            / best["wall"])
 
     total = bench.total_bases
     gbps = total / best["wall"] / 1e9
@@ -568,9 +556,7 @@ def main(argv=None) -> int:
         print(f"# top kernels of {prof['kernel_launches']} launches: "
               f"{json.dumps(prof['kernels'])}")
         print(f"# device busy: {prof['busy_us']} us of "
-              f"{prof['window_us']} us traced, share {prof['busy_share']}; "
-              f"of the best rep's {res['best']['wall']} s, share "
-              f"{prof['busy_share_unprofiled']}")
+              f"{prof['window_us']} us traced, share {prof['busy_share']}")
         print(f"# idle gaps: {json.dumps(prof['idle_gaps'])}")
         print(f"# trace: {prof['trace']}")
     print(json.dumps(res["line"]), flush=True)

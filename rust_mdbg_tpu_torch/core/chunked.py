@@ -44,6 +44,14 @@ table.
 
 Node ids follow crossing-occurrence order, so the .gfa is byte-identical
 to the JAX package's on the same input and Params.
+
+Spans (utils/timing.PhaseTimer), a chunk's marked with its index in the
+feed: on the main thread `plan`, `compile`, `setup`, `stream` (in it, a
+chunk's `feed-wait`, `construct`, `merge`, `gather`, `meta`, `sequences`,
+`reset`) and `gfa`; on the staging thread (STAGER_THREAD) a chunk's
+`feed.next-wait`, `feed.pack`, `feed.copy` and `feed.put-wait`; on the
+native parser's thread (io/fastx_native.PUMP_THREAD) `feed.token-wait` and
+`feed.parse`.
 """
 
 from __future__ import annotations
@@ -63,6 +71,9 @@ from ..utils.timing import PhaseTimer
 from .device_out import keys6_from_gk, minimizer_recompute_ok, node_offsets
 from .graph import IncrementalGFA, build_gfa, build_gfa_precomputed
 from .nodetable import NodeTable
+
+#: name of assemble_device_chunked's staging thread (pack and copy)
+STAGER_THREAD = "feed-stager"
 
 #: occurrence-slot ceiling (the JAX package's MAX_CHUNK_SLOTS): slots =
 #: minab are carried per unique key, so crossing capture is exact for any
@@ -281,40 +292,40 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     timer = timer or PhaseTimer()
     stats = stats if stats is not None else {}
 
-    plan = plan_chunks(reads_path, params, chunk_reads)
-    counter = new_counter(params, plan, dev)
-
+    with timer.phase("plan"):
+        plan = plan_chunks(reads_path, params, chunk_reads)
     # the kernel build is this port's compile phase (nvcc, first use only)
     with timer.phase("compile"):
         if dev.type == "cuda":
             build_all()
-    table = NodeTable(
-        min_abundance=params.min_kmer_abundance,
-        use_bf=params.use_bf,
-        bloom_log2_bits=params.bloom_log2_bits,
-        keep_all=params.reference,
-        capacity_hint=1 << 22,
-    )
-
-    remove_stale(prefix)
+    rec_ok = minimizer_recompute_ok(params)
+    with timer.phase("setup"):
+        counter = new_counter(params, plan, dev)
+        table = NodeTable(
+            min_abundance=params.min_kmer_abundance,
+            use_bf=params.use_bf,
+            bloom_log2_bits=params.bloom_log2_bits,
+            keep_all=params.reference,
+            capacity_hint=1 << 22,
+        )
+        remove_stale(prefix)
+        # device edge join: the crossing keys accumulate in a bounded
+        # device catalog instead of being fetched per chunk; at GFA time
+        # the id-order permutation goes up and only the POT list comes down
+        catalog = None
+        if rec_ok and os.environ.get("MDBG_CHUNK_DEVICE_JOIN", "1") != "0":
+            catalog = DeviceKeyCatalog(
+                int(os.environ.get("MDBG_CHUNK_CAT_CAP", 1 << 22)))
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     nb_reads = 0
     nb_windows = 0
     h2d_bytes = 0
     chunk_i = 0
     replans = 0
-    rec_ok = minimizer_recompute_ok(params)
     vec_ids: list[np.ndarray] = []
     vec_arrs: list[np.ndarray] = []   # [n, k] u64 vectors (vector mode)
     gk_arrs: list[np.ndarray] = []    # [n, 8] u64 fingerprints (recompute)
     gf_arrs: list[np.ndarray] = []    # [n] u8 orientation flags
-
-    # device edge join: the crossing keys accumulate in a bounded device
-    # catalog instead of being fetched per chunk; at GFA time the id-order
-    # permutation goes up and only the POT list comes down
-    catalog = None
-    if rec_ok and os.environ.get("MDBG_CHUNK_DEVICE_JOIN", "1") != "0":
-        catalog = DeviceKeyCatalog(
-            int(os.environ.get("MDBG_CHUNK_CAT_CAP", 1 << 22)))
 
     def spill_catalog():
         """Move the device catalog to the host arrays (append order kept);
@@ -326,16 +337,17 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             gf_arrs.append(gf_sp)
         catalog = None
 
-    def flush_chunk(staged, lens_d, ready, blob, blob_off, fill, cplan):
+    def flush_chunk(staged, lens_d, ready, blob, blob_off, fill, cplan, cid):
         """One chunk, staged by the chunk plan `cplan`, through: device
         reduce -> native merge -> crossing gather -> .sequences shard.  A
         chunk under another plan than the run's (an over-long read, or
         reads over their slots) is reduced in a counter of its own and
-        merged into the same node table."""
+        merged into the same node table.  `cid`, the chunk's index in the
+        feed, marks its spans."""
         nonlocal chunk_i, nb_windows, replans
         own = cplan is not plan
         ccounter = new_counter(params, cplan, dev) if own else counter
-        with timer.phase("construct"):
+        with timer.phase("construct", cid):
             if ready is not None:
                 # the stager copied on its own stream: wait for it, and
                 # tell the allocator these tensors are used on this stream
@@ -347,7 +359,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                 params, cplan, ccounter, staged, lens_d, fill)
             replans += n_re + own
             del staged, lens_d
-        with timer.phase("merge"):
+        with timer.phase("merge", cid):
             sel, _ = table.merge_chunk(
                 res["key_lo"], res["key_hi"], res["count"])
             nb_windows += int(res["count"].sum())
@@ -358,7 +370,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             order = np.argsort(occs, kind="stable")
             cross = cross[order]
             occs = occs[order]
-            with timer.phase("gather"):
+            with timer.phase("gather", cid):
                 vec = mpos = gk = gflag = None
                 n_clipped = 0
                 if catalog is not None:
@@ -380,7 +392,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             seqlen = meta[:, 0].astype(np.uint32)
             shift0, shift1, seq_shift0, seq_shift1, rev, abs_start, \
                 abs_end = node_offsets(params, meta, blob_off)
-            with timer.phase("meta"):
+            with timer.phase("meta", cid):
                 index_c = table.set_meta_batch(res["key_lo"][cross],
                                                res["key_hi"][cross],
                                                seqlen, shift0, shift1)
@@ -391,14 +403,14 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                     gk_arrs.append(gk)
                     gf_arrs.append(gflag)
             if not params.no_basespace:
-                with timer.phase("sequences"):
+                with timer.phase("sequences", cid):
                     write_records_native(
                         f"{prefix}.{chunk_i}.sequences", params.k, params.l,
                         index_c, vec, blob, abs_start, abs_end, rev,
                         seq_shift0, seq_shift1,
                         hash_bound=params.hash_bound if rec_ok else 0,
                         mpos=mpos)
-        with timer.phase("reset"):
+        with timer.phase("reset", cid):
             if ccounter is counter:
                 counter.reset_chunk()
         chunk_i += 1
@@ -406,39 +418,46 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     from .fastx_feed import stream_chunks
 
     it = iter(stream_chunks(reads_path, plan["chunk_reads"], plan["B"],
-                            plan["L"], plan["mean_len"]))
-    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+                            plan["L"], plan["mean_len"], timer=timer))
+    n_pulled = 0
 
     def fetch_and_stage():
         """Pull the next parsed chunk, pack it and copy it to the device
         (on the side stream for CUDA, recording an event the consumer
-        waits on)."""
-        nonlocal h2d_bytes
+        waits on); the chunk's index in the feed ends the tuple."""
+        nonlocal h2d_bytes, n_pulled
         while True:
-            tup = next(it, None)
+            cid = n_pulled
+            with timer.phase("feed.next-wait") as span:
+                tup = next(it, None)
+                if tup is not None:
+                    span["chunk"] = cid
             if tup is None:
                 return None
+            n_pulled += 1
             codes, lens, blob, blob_off, fill = tup
             if fill == 0:
                 continue
-            cplan = plan
-            if codes.shape[1] != plan["L"]:  # an over-long read, alone
-                cplan = long_read_plan(params, plan, int(lens[0]))
-                wide = np.full((1, cplan["L"]), 4, dtype=np.uint8)
-                wide[:, : codes.shape[1]] = codes
-                codes = wide
-            host = host_feed(codes, lens, fill, cplan)
-            del codes, tup
+            with timer.phase("feed.pack", cid):
+                cplan = plan
+                if codes.shape[1] != plan["L"]:  # an over-long read, alone
+                    cplan = long_read_plan(params, plan, int(lens[0]))
+                    wide = np.full((1, cplan["L"]), 4, dtype=np.uint8)
+                    wide[:, : codes.shape[1]] = codes
+                    codes = wide
+                host = host_feed(codes, lens, fill, cplan)
+                del codes, tup
             h2d_bytes += sum(a.nbytes for a in host) + lens.nbytes
-            ready = None
-            if side is not None:
-                with torch.cuda.stream(side):
+            with timer.phase("feed.copy", cid):
+                ready = None
+                if side is not None:
+                    with torch.cuda.stream(side):
+                        staged, lens_d = to_device(host, lens, dev)
+                        ready = torch.cuda.Event()
+                        ready.record(side)
+                else:
                     staged, lens_d = to_device(host, lens, dev)
-                    ready = torch.cuda.Event()
-                    ready.record(side)
-            else:
-                staged, lens_d = to_device(host, lens, dev)
-            return staged, lens_d, ready, blob, blob_off, fill, cplan
+            return staged, lens_d, ready, blob, blob_off, fill, cplan, cid
 
     # Double-buffered feed: a staging thread packs and copies chunk N+1
     # while the main thread runs chunk N's construct + host merge/emit.
@@ -452,22 +471,27 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             except BaseException as e:  # surfaced on the main thread
                 item = e
             # bounded put that notices a consumer abort
-            while not stop_feed.is_set():
-                try:
-                    q.put(item, timeout=0.5)
-                    break
-                except queue.Full:
-                    continue
+            with timer.phase("feed.put-wait",
+                             item[-1] if isinstance(item, tuple) else None):
+                while not stop_feed.is_set():
+                    try:
+                        q.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
             if item is None or isinstance(item, BaseException):
                 return
 
-    stager = threading.Thread(target=_stager, daemon=True)
+    stager = threading.Thread(target=_stager, name=STAGER_THREAD,
+                              daemon=True)
     stager.start()
     try:
         with timer.phase("stream"):
             while True:
-                with timer.phase("feed-wait"):
+                with timer.phase("feed-wait") as span:
                     item = q.get()
+                    if isinstance(item, tuple):
+                        span["chunk"] = item[-1]
                 if isinstance(item, BaseException):
                     raise item
                 if item is None:
@@ -532,6 +556,5 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             g = build_gfa(f"{prefix}.gfa", nodes, varr,
                           presimp=params.presimp)
     stats.update(g)
-    stats["phases"] = timer.report()
-    stats["phase_stats"] = timer.report_stats()
+    stats.update(timer.stats())
     return stats

@@ -22,14 +22,17 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.alloc import full_fast
+from ..utils.timing import PhaseTimer
 
 from ..io import fastx
 
 
 def stream_chunks(path: str, chunk_reads: int, batch_reads: int,
-                  max_len: int, mean_len: int = 0, start: int = 0):
+                  max_len: int, mean_len: int = 0, start: int = 0,
+                  timer: PhaseTimer | None = None):
     """Yield chunk tuples for `path`; native parser when supported.
-    `start` (native parser only): the byte offset of the first record."""
+    `start` (native parser only): the byte offset of the first record.
+    `timer` records the native parse thread's spans."""
     rdr = None
     from ..io import fastx_native
 
@@ -43,7 +46,7 @@ def stream_chunks(path: str, chunk_reads: int, batch_reads: int,
     if rdr is not None:
         for c in fastx_native.chunks_prefetched(
                 path, chunk_reads, max_len, mean_len_hint=mean_len,
-                start=start):
+                start=start, timer=timer):
             yield c.codes, c.lengths, c.raw, c.raw_off, c.n
         return
     if start:

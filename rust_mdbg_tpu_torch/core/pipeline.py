@@ -101,21 +101,36 @@ def assemble(reads_path: str, params: Params, prefix: str,
     With read_stats_path the run mirrors the reference's read_stats mode
     (main.rs:938-1004): after the abundance filter it writes the per-read
     k-min-mer abundances of that file's reads to `<file>.read_stats` and
-    returns WITHOUT writing a GFA."""
-    dev = resolve_device(device)
-    if params.engine not in ("device", "host"):
-        raise ValueError(f"engine {params.engine!r}: device or host")
+    returns WITHOUT writing a GFA.
+
+    Whatever the route, the run is one `job` span (utils/timing.PhaseTimer)
+    and the stats end with its record: `phases`, `spans` and `counters`
+    (`rss_start_bytes`, `rss_high_bytes`, and `nthash_positions`, the
+    positions the nthash_select kernel's launches covered)."""
+    from ..ops import kernels
+
     timer = PhaseTimer()
     stats: dict = {}
-    if _device_table_eligible(params, read_stats_path):
-        if chunked_eligible(params):
-            return assemble_device_chunked(reads_path, params, prefix, timer,
-                                           stats, chunk_reads=params.chunk_reads,
-                                           device=dev)
-        return assemble_device_table(reads_path, params, prefix, timer, stats,
-                                     device=dev, mem_budget=mem_budget)
-    return assemble_streaming(reads_path, params, prefix, read_stats_path,
-                              dev, timer, stats)
+    with timer.job():
+        dev = resolve_device(device)
+        if params.engine not in ("device", "host"):
+            raise ValueError(f"engine {params.engine!r}: device or host")
+        positions = kernels.nthash_select.positions
+        if not _device_table_eligible(params, read_stats_path):
+            stats = assemble_streaming(reads_path, params, prefix,
+                                       read_stats_path, dev, timer, stats)
+        elif chunked_eligible(params):
+            stats = assemble_device_chunked(
+                reads_path, params, prefix, timer, stats,
+                chunk_reads=params.chunk_reads, device=dev)
+        else:
+            stats = assemble_device_table(reads_path, params, prefix, timer,
+                                          stats, device=dev,
+                                          mem_budget=mem_budget)
+        timer.count("nthash_positions",
+                    kernels.nthash_select.positions - positions)
+    stats.update(timer.stats())
+    return stats
 
 
 def assemble_streaming(reads_path: str, params: Params, prefix: str,
@@ -546,7 +561,8 @@ def _table_pass(reads_path: str, params: Params, prefix: str, plan: dict,
         with timer.phase("extract+count(device)"):
             chunks_flushed = 0
             for codes, lens, cblob, cblob_off, fill in stream_chunks(
-                    reads_path, CH, plan["B"], plan["L"], plan["mean_len"]):
+                    reads_path, CH, plan["B"], plan["L"], plan["mean_len"],
+                    timer=timer):
                 if fill == 0:
                     continue
                 if codes.shape[1] != plan["L"]:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import os
 import queue
 import threading
@@ -25,6 +26,7 @@ import numpy as np
 from ..utils.alloc import full_fast
 
 from ..native import load
+from ..utils.timing import PhaseTimer
 from .fastx import is_fasta
 
 _STATUS_MORE = 0
@@ -199,7 +201,7 @@ PUMP_THREAD = "fastx-prefetch"
 
 def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
                       mean_len_hint: int = 0, depth: int = 1,
-                      start: int = 0):
+                      start: int = 0, timer: PhaseTimer | None = None):
     """Iterate NativeChunks with a background parse thread so file parsing
     overlaps device compute (from byte `start`, a record's first byte).
 
@@ -213,7 +215,13 @@ def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
     However the consumer leaves (the end of the input, a `break`, an
     exception), the parse thread (named PUMP_THREAD) is stopped and joined
     before the native reader is closed: closing it under a running parse
-    crashes the process."""
+    crashes the process.
+
+    The pump's spans go to `timer`, marked with the chunk's index in the
+    file: `feed.token-wait` (for chunk i's build token) and `feed.parse`
+    (buffer allocation and the native parse; the parse that finds the end
+    of the input marks none)."""
+    timer = timer or PhaseTimer()
     rdr = NativeReader(path, chunk_reads, max_len,
                        mean_len_hint=mean_len_hint, start=start)
     q: queue.Queue = queue.Queue(maxsize=depth)
@@ -223,11 +231,15 @@ def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
 
     def pump():
         try:
-            while True:
-                build_tokens.acquire()
+            for i in itertools.count():
+                with timer.phase("feed.token-wait", i):
+                    build_tokens.acquire()
                 if stop.is_set():
                     return
-                c = rdr.next_chunk()
+                with timer.phase("feed.parse") as span:
+                    c = rdr.next_chunk()
+                    if c is not None:
+                        span["chunk"] = i
                 if c is None:
                     q.put(_SENTINEL)
                     return

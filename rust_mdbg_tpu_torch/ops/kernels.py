@@ -9,7 +9,8 @@ Counterpart of rust_mdbg_tpu/ops/pallas_kernels.py.  Each kernel has:
   kernel against on the card;
 - a wrapper that launches the kernel for CUDA tensors (or raises) and takes
   the plain version only for CPU tensors, counting its launches in the
-  wrapper's `launches` attribute.
+  wrapper's `launches` attribute (nthash_select also the positions they
+  cover, rows x width, in `positions`).
 """
 
 from __future__ import annotations
@@ -209,10 +210,12 @@ def nthash_select(codes: torch.Tensor, l: int, hash_bound: int,
     if err != 0:
         raise RuntimeError(f"nthash_select launch failed: CUDA error {err}")
     nthash_select.launches += 1
+    nthash_select.positions += B * L
     return canon, sel
 
 
 nthash_select.launches = 0
+nthash_select.positions = 0
 
 
 # --- syncmer_select -----------------------------------------------------------

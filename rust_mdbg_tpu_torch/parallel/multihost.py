@@ -359,7 +359,9 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
     """Whole assembly over every process of the group; each process calls
     this (after init_distributed).  Stats as the JAX function's (nb_reads
     counts this process's reads), plus the backend, its rule, `phases`
-    and the per-shard windows and unique keys of this process's shards."""
+    (with `spans` and `counters`: utils/timing.PhaseTimer's record of this
+    process's `job`) and the per-shard windows and unique keys of this
+    process's shards."""
     from ..core.chunked import host_feed, plan_chunks
     from ..io.sequences import remove_stale, write_records_native
     from ..ops import u64
@@ -371,121 +373,122 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
                            record_spans, sharded_edges_enabled,
                            staged_rounds)
 
-    mesh = ProcessMesh(local_devices(device))
-    pid, nproc, n, dl = mesh.pid, mesh.nproc, mesh.n, mesh.d_local
     timer = PhaseTimer()
-    with timer.phase("compile"):
-        if mesh.devices[0].type == "cuda":
-            build_all()
-    inputs = host_inputs(reads_path, pid, nproc)
-    B = ((params.batch_reads + n - 1) // n) * n
-    B_host, B_local = B // nproc, B // n
-    # sizes must agree on every process: take them from the whole input
-    plan = plan_chunks([p for p in str(reads_path).split(",") if p][0],
-                       params, chunk_reads=B)
-    pipe = ShardedPipeline(mesh, params, B_local, plan["M"])
+    with timer.job():
+        mesh = ProcessMesh(local_devices(device))
+        pid, nproc, n, dl = mesh.pid, mesh.nproc, mesh.n, mesh.d_local
+        with timer.phase("compile"):
+            if mesh.devices[0].type == "cuda":
+                build_all()
+        inputs = host_inputs(reads_path, pid, nproc)
+        B = ((params.batch_reads + n - 1) // n) * n
+        B_host, B_local = B // nproc, B // n
+        # sizes must agree on every process: take them from the whole input
+        plan = plan_chunks([p for p in str(reads_path).split(",") if p][0],
+                           params, chunk_reads=B)
+        pipe = ShardedPipeline(mesh, params, B_local, plan["M"])
 
-    if pid == 0:
-        remove_stale(prefix)
-    mesh.barrier()
-    # one up-front exchange replaces a per-round liveness collective
-    my_reads = sum(count_range_records(p, s, e) for p, s, e in inputs)
-    rounds = max(1, -(-max(mesh.gather_objects(my_reads)) // B_host))
-    raw = RawBlob(B_host)   # this process's reads, local row order
-    feed = prefetched(staged_rounds(exact_rounds(
-        share_chunks(inputs, B_host, plan["L"], plan["mean_len"]), B_host,
-        plan["L"]), plan))
-    lens0 = np.zeros(B_host, dtype=np.int32)
-    empty = host_feed(full_fast((B_host, plan["L"]), 5, np.uint8), lens0,
-                      B_host, plan)
-    read_base = 0
-    try:
-        for _ in range(rounds):
-            with timer.phase("feed"):
-                item = next(feed, None)
-            if item is None:
-                host, lens = empty, lens0
-                raw.empty_round()
-            else:
-                host, lens, blob, blob_off, fill = item
-                raw.add(blob, blob_off, fill)
-            with timer.phase("steps"):
-                pipe.step(host, lens, read_base)
-            read_base += B
-    finally:
-        feed.close()
-    with timer.phase("finalize"):
-        shards, bases = pipe.finalize()
-    total = bases[-1]
-    stats = dict(nb_reads=raw.n_reads, n_devices=n,
-                 n_hosts=nproc, rounds=rounds, backend=mesh.backend,
-                 backend_rule=BACKEND_RULE, device=str(mesh.devices[0]),
-                 staged_shapes=[[B_local, w] for w in sorted(pipe.widths)],
-                 shard_windows=[r["windows"] for r in shards],
-                 shard_unique_keys=[r["n_unique"] for r in shards])
-    mc = pipe.mc
+        if pid == 0:
+            remove_stale(prefix)
+        mesh.barrier()
+        # one up-front exchange replaces a per-round liveness collective
+        my_reads = sum(count_range_records(p, s, e) for p, s, e in inputs)
+        rounds = max(1, -(-max(mesh.gather_objects(my_reads)) // B_host))
+        raw = RawBlob(B_host)   # this process's reads, local row order
+        feed = prefetched(staged_rounds(exact_rounds(
+            share_chunks(inputs, B_host, plan["L"], plan["mean_len"]), B_host,
+            plan["L"]), plan))
+        lens0 = np.zeros(B_host, dtype=np.int32)
+        empty = host_feed(full_fast((B_host, plan["L"]), 5, np.uint8), lens0,
+                          B_host, plan)
+        read_base = 0
+        try:
+            for _ in range(rounds):
+                with timer.phase("feed"):
+                    item = next(feed, None)
+                if item is None:
+                    host, lens = empty, lens0
+                    raw.empty_round()
+                else:
+                    host, lens, blob, blob_off, fill = item
+                    raw.add(blob, blob_off, fill)
+                with timer.phase("steps"):
+                    pipe.step(host, lens, read_base)
+                read_base += B
+        finally:
+            feed.close()
+        with timer.phase("finalize"):
+            shards, bases = pipe.finalize()
+        total = bases[-1]
+        stats = dict(nb_reads=raw.n_reads, n_devices=n,
+                     n_hosts=nproc, rounds=rounds, backend=mesh.backend,
+                     backend_rule=BACKEND_RULE, device=str(mesh.devices[0]),
+                     staged_shapes=[[B_local, w] for w in sorted(pipe.widths)],
+                     shard_windows=[r["windows"] for r in shards],
+                     shard_unique_keys=[r["n_unique"] for r in shards])
+        mc = pipe.mc
 
-    if sharded_edges_enabled() and total:
-        with timer.phase("sequences"):
-            if not params.no_basespace:
-                blob, offsets = raw.arrays()
-                recv = route_records(mesh, shards, B, B_host, dl)
-                for j, r in enumerate(recv):
-                    if not r.shape[0]:
-                        continue
-                    gid = r[:, 0].to(torch.int32).cpu().numpy().view(
-                        np.uint32)
-                    meta = r[:, 1:1 + mc].to(torch.int32).cpu().numpy() \
-                        .view(np.uint32)
-                    rows = meta[:, 4].astype(np.int64)
+        if sharded_edges_enabled() and total:
+            with timer.phase("sequences"):
+                if not params.no_basespace:
+                    blob, offsets = raw.arrays()
+                    recv = route_records(mesh, shards, B, B_host, dl)
+                    for j, r in enumerate(recv):
+                        if not r.shape[0]:
+                            continue
+                        gid = r[:, 0].to(torch.int32).cpu().numpy().view(
+                            np.uint32)
+                        meta = r[:, 1:1 + mc].to(torch.int32).cpu().numpy() \
+                            .view(np.uint32)
+                        rows = meta[:, 4].astype(np.int64)
+                        write_records_native(
+                            f"{prefix}.h{pid}x{j}.sequences", params.k,
+                            params.l, gid, u64.to_numpy(r[:, 1 + mc:]), blob,
+                            *record_spans(meta, offsets,
+                                          (rows // B) * B_host + rows % B_host,
+                                          params.l))
+            with timer.phase("gfa"):
+                parts, nb_edges, n_removed = gfa_parts(mesh, shards, bases,
+                                                       params.presimp)
+                for s, (s_text, l_text) in zip(mesh.local, parts):
+                    with open(f"{prefix}.gfapart.s{s:04d}", "w") as f:
+                        f.write(s_text)
+                    with open(f"{prefix}.gfapart.l{s:04d}", "w") as f:
+                        f.write(l_text)
+                mesh.barrier()
+                win = sum(int(r["count"].sum()) for r in shards)
+                tot = np.sum(mesh.gather_objects([win, nb_edges, n_removed]),
+                             axis=0)
+                if pid == 0:
+                    _concat_parts(prefix, n)
+            stats.update(nb_windows=int(tot[0]), nb_edges=int(tot[1]),
+                         presimp_removed=int(tot[2]), nb_nodes=total,
+                         distributed_edges=True)
+        else:
+            # gathered single-host table (MDBG_SHARDED_EDGES=0)
+            nodes = mesh.gather_objects(host_nodes(shards))
+            nodes = {key: np.concatenate([t[key] for t in nodes])
+                     for key in ("count", "meta", "vec")}
+            index = np.arange(total, dtype=np.uint32)
+            with timer.phase("sequences"):
+                meta = nodes["meta"]
+                rows = meta[:, 4].astype(np.int64)
+                mine = np.nonzero((rows % B) // B_host == pid)[0]
+                if not params.no_basespace and mine.size:
+                    blob, offsets = raw.arrays()
                     write_records_native(
-                        f"{prefix}.h{pid}x{j}.sequences", params.k,
-                        params.l, gid, u64.to_numpy(r[:, 1 + mc:]), blob,
-                        *record_spans(meta, offsets,
-                                      (rows // B) * B_host + rows % B_host,
-                                      params.l))
-        with timer.phase("gfa"):
-            parts, nb_edges, n_removed = gfa_parts(mesh, shards, bases,
-                                                   params.presimp)
-            for s, (s_text, l_text) in zip(mesh.local, parts):
-                with open(f"{prefix}.gfapart.s{s:04d}", "w") as f:
-                    f.write(s_text)
-                with open(f"{prefix}.gfapart.l{s:04d}", "w") as f:
-                    f.write(l_text)
-            mesh.barrier()
-            win = sum(int(r["count"].sum()) for r in shards)
-            tot = np.sum(mesh.gather_objects([win, nb_edges, n_removed]),
-                         axis=0)
-            if pid == 0:
-                _concat_parts(prefix, n)
-        stats.update(nb_windows=int(tot[0]), nb_edges=int(tot[1]),
-                     presimp_removed=int(tot[2]), nb_nodes=total,
-                     distributed_edges=True)
-    else:
-        # gathered single-host table (MDBG_SHARDED_EDGES=0)
-        nodes = mesh.gather_objects(host_nodes(shards))
-        nodes = {key: np.concatenate([t[key] for t in nodes])
-                 for key in ("count", "meta", "vec")}
-        index = np.arange(total, dtype=np.uint32)
-        with timer.phase("sequences"):
-            meta = nodes["meta"]
-            rows = meta[:, 4].astype(np.int64)
-            mine = np.nonzero((rows % B) // B_host == pid)[0]
-            if not params.no_basespace and mine.size:
-                blob, offsets = raw.arrays()
-                write_records_native(
-                    f"{prefix}.h{pid}.sequences", params.k, params.l,
-                    index[mine], nodes["vec"][mine], blob,
-                    *record_spans(meta[mine], offsets,
-                                  (rows[mine] // B) * B_host
-                                  + rows[mine] % B_host, params.l))
-        stats["nb_windows"] = int(nodes["count"].sum())
-        with timer.phase("gfa"):
-            if pid == 0:
-                stats.update(gathered_gfa(f"{prefix}.gfa", params, nodes,
-                                          index))
-    mesh.barrier()
-    stats["phases"] = timer.report()
+                        f"{prefix}.h{pid}.sequences", params.k, params.l,
+                        index[mine], nodes["vec"][mine], blob,
+                        *record_spans(meta[mine], offsets,
+                                      (rows[mine] // B) * B_host
+                                      + rows[mine] % B_host, params.l))
+            stats["nb_windows"] = int(nodes["count"].sum())
+            with timer.phase("gfa"):
+                if pid == 0:
+                    stats.update(gathered_gfa(f"{prefix}.gfa", params, nodes,
+                                              index))
+        mesh.barrier()
+    stats.update(timer.stats())
     return stats
 
 

@@ -356,7 +356,8 @@ def assemble_sharded(reads_path: str, params, prefix: str,
 
     Stats: the JAX function's (nb_reads, nb_windows, n_devices, nb_nodes,
     nb_edges, presimp_removed, distributed_edges with the distributed
-    join), plus `phases` (seconds: feed, steps, finalize, sequences, gfa),
+    join), plus `phases` (seconds: job, feed, steps, finalize, sequences,
+    gfa) with their `spans` and `counters` (utils/timing.PhaseTimer),
     `shard_windows` and `shard_unique_keys` (per shard: the windows it
     received and its unique keys; the JAX run keeps at most 2^20 of the
     latter), `staged_shapes` (the [rows, width] a shard's extraction ran
@@ -373,69 +374,72 @@ def assemble_sharded(reads_path: str, params, prefix: str,
     from .edges import gfa_parts
     from .mesh import make_mesh
 
-    if n_devices is None:
-        n_devices = (torch.cuda.device_count() if device is None
-                     or torch.device(device).type == "cuda" else 1)
-    mesh = make_mesh(n_devices, device)
-    n = mesh.n
     timer = PhaseTimer()
-    with timer.phase("compile"):
-        if mesh.devices[0].type == "cuda":
-            build_all()
-    B = ((params.batch_reads + n - 1) // n) * n
-    plan = plan_chunks(reads_path, params, chunk_reads=B)
-    pipe = ShardedPipeline(mesh, params, B // n, plan["M"])
+    with timer.job():
+        if n_devices is None:
+            n_devices = (torch.cuda.device_count() if device is None
+                         or torch.device(device).type == "cuda" else 1)
+        mesh = make_mesh(n_devices, device)
+        n = mesh.n
+        with timer.phase("compile"):
+            if mesh.devices[0].type == "cuda":
+                build_all()
+        B = ((params.batch_reads + n - 1) // n) * n
+        plan = plan_chunks(reads_path, params, chunk_reads=B)
+        pipe = ShardedPipeline(mesh, params, B // n, plan["M"])
 
-    remove_stale(prefix)
-    raw = RawBlob(B)
-    read_base = 0
-    rounds = prefetched(staged_rounds(exact_rounds(
-        stream_chunks(reads_path, B, B, plan["L"], plan["mean_len"]), B,
-        plan["L"]), plan))
-    try:
-        while True:
-            with timer.phase("feed"):
-                item = next(rounds, None)
-            if item is None:
-                break
-            host, lens, blob, blob_off, fill = item
-            with timer.phase("steps"):
-                pipe.step(host, lens, read_base)
-            raw.add(blob, blob_off, fill)
-            read_base += B
-    finally:
-        rounds.close()
-    with timer.phase("finalize"):
-        shards, bases = pipe.finalize()
-        nodes = host_nodes(shards)
-    total = bases[-1]
-    index = np.arange(total, dtype=np.uint32)
-    stats = dict(nb_reads=raw.n_reads,
-                 nb_windows=int(nodes["count"].sum()), n_devices=n,
-                 device=str(mesh.devices[0]), staged_shapes=[
-                     [B // n, w] for w in sorted(pipe.widths)],
-                 shard_windows=[r["windows"] for r in shards],
-                 shard_unique_keys=[r["n_unique"] for r in shards])
-    with timer.phase("sequences"):
-        if not params.no_basespace and total:
-            blob, offsets = raw.arrays()
-            meta = nodes["meta"]
-            spans = record_spans(meta, offsets, meta[:, 4].astype(np.int64),
-                                 params.l)
-            write_records_native_sharded(
-                prefix, params.k, params.l, index, nodes["vec"], blob,
-                *spans, n_shards=params.threads)
-    with timer.phase("gfa"):
-        if sharded_edges_enabled():
-            parts, nb_edges, n_removed = gfa_parts(mesh, shards, bases,
-                                                   params.presimp)
-            with open(f"{prefix}.gfa", "w", buffering=1 << 20) as f:
-                f.write("H\tVN:Z:1.0\n")
-                f.writelines(s for s, _ in parts)
-                f.writelines(l_text for _, l_text in parts)
-            stats.update(nb_nodes=total, nb_edges=nb_edges,
-                         presimp_removed=n_removed, distributed_edges=True)
-        else:
-            stats.update(gathered_gfa(f"{prefix}.gfa", params, nodes, index))
-    stats["phases"] = timer.report()
+        remove_stale(prefix)
+        raw = RawBlob(B)
+        read_base = 0
+        rounds = prefetched(staged_rounds(exact_rounds(
+            stream_chunks(reads_path, B, B, plan["L"], plan["mean_len"]), B,
+            plan["L"]), plan))
+        try:
+            while True:
+                with timer.phase("feed"):
+                    item = next(rounds, None)
+                if item is None:
+                    break
+                host, lens, blob, blob_off, fill = item
+                with timer.phase("steps"):
+                    pipe.step(host, lens, read_base)
+                raw.add(blob, blob_off, fill)
+                read_base += B
+        finally:
+            rounds.close()
+        with timer.phase("finalize"):
+            shards, bases = pipe.finalize()
+            nodes = host_nodes(shards)
+        total = bases[-1]
+        index = np.arange(total, dtype=np.uint32)
+        stats = dict(nb_reads=raw.n_reads,
+                     nb_windows=int(nodes["count"].sum()), n_devices=n,
+                     device=str(mesh.devices[0]), staged_shapes=[
+                         [B // n, w] for w in sorted(pipe.widths)],
+                     shard_windows=[r["windows"] for r in shards],
+                     shard_unique_keys=[r["n_unique"] for r in shards])
+        with timer.phase("sequences"):
+            if not params.no_basespace and total:
+                blob, offsets = raw.arrays()
+                meta = nodes["meta"]
+                spans = record_spans(meta, offsets,
+                                     meta[:, 4].astype(np.int64), params.l)
+                write_records_native_sharded(
+                    prefix, params.k, params.l, index, nodes["vec"], blob,
+                    *spans, n_shards=params.threads)
+        with timer.phase("gfa"):
+            if sharded_edges_enabled():
+                parts, nb_edges, n_removed = gfa_parts(mesh, shards, bases,
+                                                       params.presimp)
+                with open(f"{prefix}.gfa", "w", buffering=1 << 20) as f:
+                    f.write("H\tVN:Z:1.0\n")
+                    f.writelines(s for s, _ in parts)
+                    f.writelines(l_text for _, l_text in parts)
+                stats.update(nb_nodes=total, nb_edges=nb_edges,
+                             presimp_removed=n_removed,
+                             distributed_edges=True)
+            else:
+                stats.update(gathered_gfa(f"{prefix}.gfa", params, nodes,
+                                          index))
+    stats.update(timer.stats())
     return stats

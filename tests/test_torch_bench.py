@@ -130,10 +130,11 @@ def test_overflowing_slots_raise(tmp_path, monkeypatch):
 
 
 def test_trace_breakdown_reads_busy_share_and_gaps(tmp_path):
-    """A hand-made trace: the anchor at perf_counter 10.0 s is at 5,000 us
-    on the trace's clock; kernels and a copy occupy 300 of the 1,000 us
-    window (a kernel past it is not counted); the longest gap lies in the
-    second stage."""
+    """A hand-made trace: the timer's clock pair and the trace's
+    baseTimeNanoseconds put perf_counter 10.0 s at 5,000 us on the trace's
+    clock; kernels and a copy occupy 300 of the 1,000 us window (a kernel
+    past it is not counted); the longest gap lies in the second stage."""
+    clock = (1_700_000_000_000_000_000, 10_000_000_000)
     ev = [dict(ph="X", cat="user_annotation", name="rep", ts=5000.0,
                dur=1000.0),
           dict(ph="X", cat="gpu_user_annotation", name="rep", ts=0.0,
@@ -145,10 +146,13 @@ def test_trace_breakdown_reads_busy_share_and_gaps(tmp_path):
           dict(ph="X", cat="kernel", name="k3", ts=6500.0, dur=10.0),
           dict(ph="X", cat="cpu_op", name="aten::sort", ts=5100.0, dur=9.0)]
     path = tmp_path / "t.json"
-    path.write_text(json.dumps(dict(traceEvents=ev)))
-    spans = [("loop", 10.0, 10.0004), ("phase-1 emit", 10.0001, 10.00024),
-             ("tail", 10.0004, 10.001)]
-    out = bench.trace_breakdown(str(path), spans, "rep", 10.0)
+    path.write_text(json.dumps(dict(traceEvents=ev,
+                                    baseTimeNanoseconds=clock[0] - 5_000_000)))
+    spans = [dict(name=name, start_ns=clock[1] + a, end_ns=clock[1] + b)
+             for name, a, b in [("loop", 0, 400_000),
+                                ("phase-1 emit", 100_000, 240_000),
+                                ("tail", 400_000, 1_000_000)]]
+    out = bench.trace_breakdown(str(path), spans, clock)
     assert out["window_us"] == pytest.approx(1000.0)
     assert out["busy_us"] == pytest.approx(300.0)
     assert out["busy_share"] == pytest.approx(0.3)
