@@ -45,13 +45,27 @@ table.
 Node ids follow crossing-occurrence order, so the .gfa is byte-identical
 to the JAX package's on the same input and Params.
 
+The feed: the native parser (core/fastx_feed with the run's packed plan)
+writes each chunk's staged planes itself, 2-bit values and invalid mask at
+the half width where the chunk's reads fit it, in its parallel encode; the
+staging thread takes them and copies them to the device.  An over-long
+read's singleton chunk and the pure-Python fallback (.lz4) arrive as codes
+and are packed there by host_feed.  A chunk is copied only once the
+previous chunk's construct has ended (the device slot): at most one
+chunk's staged tensors are alive during a construct, and the next chunk's
+copy overlaps the merge and the writers of the last.
+
 Spans (utils/timing.PhaseTimer), a chunk's marked with its index in the
 feed: on the main thread `plan`, `compile`, `setup`, `stream` (in it, a
 chunk's `feed-wait`, `construct`, `merge`, `gather`, `meta`, `sequences`,
 `reset`) and `gfa`; on the staging thread (STAGER_THREAD) a chunk's
-`feed.next-wait`, `feed.pack`, `feed.copy` and `feed.put-wait`; on the
-native parser's thread (io/fastx_native.PUMP_THREAD) `feed.token-wait` and
-`feed.parse`.
+`feed.next-wait`, `feed.pack` (taking the parser's planes, or host_feed),
+`feed.slot-wait`, `feed.copy` and `feed.put-wait`; on the native parser's
+thread (io/fastx_native.PUMP_THREAD) `feed.token-wait` and `feed.parse`
+(the planes' pack included).  Counters: `feed.parser_packed_chunks` and
+`feed.host_packed_chunks`, the chunks whose planes the parser wrote and
+those host_feed packed, and `feed.staged_high`, the most chunks whose
+staged tensors were alive at once.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -72,7 +87,7 @@ from .device_out import keys6_from_gk, minimizer_recompute_ok, node_offsets
 from .graph import IncrementalGFA, build_gfa, build_gfa_precomputed
 from .nodetable import NodeTable
 
-#: name of assemble_device_chunked's staging thread (pack and copy)
+#: name of assemble_device_chunked's staging thread (planes and copy)
 STAGER_THREAD = "feed-stager"
 
 #: occurrence-slot ceiling (the JAX package's MAX_CHUNK_SLOTS): slots =
@@ -188,7 +203,9 @@ def host_feed(codes: np.ndarray, lens: np.ndarray, fill: int,
               plan: dict) -> tuple:
     """A parsed chunk's codes as the host arrays copied to the device: cut
     to the half width where its reads fit, then 2-bit packed (packed,
-    mask) or left as (codes,)."""
+    mask) or left as (codes,).  The chunked driver's native feed gets the
+    same planes from the parser (fastx_feed.stream_chunks' packed_half);
+    this packs the codes of every other feed."""
     from ..ops.pack import pack_codes_np
 
     if codes.shape[1] != plan["L"]:
@@ -337,14 +354,13 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             gf_arrs.append(gf_sp)
         catalog = None
 
-    def flush_chunk(staged, lens_d, ready, blob, blob_off, fill, cplan, cid):
-        """One chunk, staged by the chunk plan `cplan`, through: device
-        reduce -> native merge -> crossing gather -> .sequences shard.  A
-        chunk under another plan than the run's (an over-long read, or
-        reads over their slots) is reduced in a counter of its own and
-        merged into the same node table.  `cid`, the chunk's index in the
-        feed, marks its spans."""
-        nonlocal chunk_i, nb_windows, replans
+    def construct(staged, lens_d, ready, fill, cplan, cid):
+        """A chunk staged by the chunk plan `cplan` through the device
+        reduce: (finalize_chunk's result, the counter it was reduced in).
+        A chunk under another plan than the run's (an over-long read, or
+        reads over their slots) is reduced in a counter of its own.  `cid`,
+        the chunk's index in the feed, marks its spans."""
+        nonlocal replans
         own = cplan is not plan
         ccounter = new_counter(params, cplan, dev) if own else counter
         with timer.phase("construct", cid):
@@ -358,7 +374,12 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
             res, cplan, ccounter, n_re = construct_accepted(
                 params, cplan, ccounter, staged, lens_d, fill)
             replans += n_re + own
-            del staged, lens_d
+        return res, ccounter
+
+    def flush_chunk(res, ccounter, blob, blob_off, cid):
+        """A reduced chunk through: native merge -> crossing gather ->
+        .sequences shard, into the run's one node table."""
+        nonlocal chunk_i, nb_windows
         with timer.phase("merge", cid):
             sel, _ = table.merge_chunk(
                 res["key_lo"], res["key_hi"], res["count"])
@@ -417,14 +438,43 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
 
     from .fastx_feed import stream_chunks
 
-    it = iter(stream_chunks(reads_path, plan["chunk_reads"], plan["B"],
-                            plan["L"], plan["mean_len"], timer=timer))
+    it = iter(stream_chunks(
+        reads_path, plan["chunk_reads"], plan["B"], plan["L"],
+        plan["mean_len"], timer=timer,
+        packed_half=plan["L_half"] if plan["packed"] else None))
     n_pulled = 0
 
+    # the device slot: the stager copies a chunk only once main's construct
+    # of the last one has ended and dropped its staged tensors
+    device_slot = threading.Semaphore(1)
+    live_lock = threading.Lock()
+    n_live = 0
+    for name in ("feed.parser_packed_chunks", "feed.host_packed_chunks"):
+        timer.count(name, 0)
+    timer.high("feed.staged_high", 0)
+
+    def track_staged(t: torch.Tensor):
+        """Count a staged chunk alive until its 2-bit plane `t` is freed
+        (main drops the chunk's tensors together); the most alive at once
+        is the counter feed.staged_high."""
+        nonlocal n_live
+
+        def freed():
+            nonlocal n_live
+            with live_lock:
+                n_live -= 1
+
+        with live_lock:
+            n_live += 1
+            timer.high("feed.staged_high", n_live)
+        weakref.finalize(t, freed).atexit = False
+
     def fetch_and_stage():
-        """Pull the next parsed chunk, pack it and copy it to the device
-        (on the side stream for CUDA, recording an event the consumer
-        waits on); the chunk's index in the feed ends the tuple."""
+        """Pull the next parsed chunk, take the planes the parser wrote (or
+        pack its codes), wait for the device slot and copy it to the device
+        (on the side stream for CUDA, recording an event the consumer waits
+        on); the chunk's index in the feed ends the tuple.  None at the end
+        of the input, or when the run stops while the stager waits."""
         nonlocal h2d_bytes, n_pulled
         while True:
             cid = n_pulled
@@ -436,18 +486,29 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                 return None
             n_pulled += 1
             codes, lens, blob, blob_off, fill = tup
+            del tup
             if fill == 0:
                 continue
             with timer.phase("feed.pack", cid):
                 cplan = plan
-                if codes.shape[1] != plan["L"]:  # an over-long read, alone
-                    cplan = long_read_plan(params, plan, int(lens[0]))
-                    wide = np.full((1, cplan["L"]), 4, dtype=np.uint8)
-                    wide[:, : codes.shape[1]] = codes
-                    codes = wide
-                host = host_feed(codes, lens, fill, cplan)
-                del codes, tup
+                if isinstance(codes, tuple):  # the parser wrote the planes
+                    host = codes
+                    timer.count("feed.parser_packed_chunks", 1)
+                else:
+                    if codes.shape[1] != plan["L"]:  # an over-long read
+                        cplan = long_read_plan(params, plan, int(lens[0]))
+                        wide = np.full((1, cplan["L"]), 4, dtype=np.uint8)
+                        wide[:, : codes.shape[1]] = codes
+                        codes = wide
+                    host = host_feed(codes, lens, fill, cplan)
+                    if cplan["packed"]:
+                        timer.count("feed.host_packed_chunks", 1)
+                del codes
             h2d_bytes += sum(a.nbytes for a in host) + lens.nbytes
+            with timer.phase("feed.slot-wait", cid):
+                while not device_slot.acquire(timeout=0.5):
+                    if stop_feed.is_set():
+                        return None
             with timer.phase("feed.copy", cid):
                 ready = None
                 if side is not None:
@@ -457,10 +518,12 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                         ready.record(side)
                 else:
                     staged, lens_d = to_device(host, lens, dev)
+                track_staged(staged[0])
             return staged, lens_d, ready, blob, blob_off, fill, cplan, cid
 
-    # Double-buffered feed: a staging thread packs and copies chunk N+1
-    # while the main thread runs chunk N's construct + host merge/emit.
+    # Double-buffered feed: the staging thread takes chunk N+1's planes and,
+    # once chunk N's construct has ended, copies them while the main thread
+    # runs chunk N's host merge and writers.
     q: "queue.Queue" = queue.Queue(maxsize=1)
     stop_feed = threading.Event()
 
@@ -481,6 +544,7 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                         continue
             if item is None or isinstance(item, BaseException):
                 return
+            del item  # main alone holds a queued chunk's staged tensors
 
     stager = threading.Thread(target=_stager, name=STAGER_THREAD,
                               daemon=True)
@@ -496,8 +560,16 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                     raise item
                 if item is None:
                     break
-                nb_reads += item[5]
-                flush_chunk(*item)
+                staged, lens_d, ready, blob, blob_off, fill, cplan, cid = item
+                del item
+                nb_reads += fill
+                res, ccounter = construct(staged, lens_d, ready, fill, cplan,
+                                          cid)
+                # free the chunk's staged tensors, then let the stager copy
+                # the next one
+                del staged, lens_d, ready
+                device_slot.release()
+                flush_chunk(res, ccounter, blob, blob_off, cid)
     finally:
         stop_feed.set()
         stager.join(timeout=60)

@@ -10,7 +10,11 @@ native parser does not handle (.lz4) fall back to the pure-Python batcher.
 Tuple contract (consumed by core/chunked.assemble_device_chunked):
   codes    uint8 [chunk_reads, width] base codes; width == max_len except for
            over-long reads, which arrive as singleton [1, width > max_len]
-           tuples so the caller can detect them
+           tuples so the caller can detect them.  With `packed_half` and
+           the native parser, the staged planes (packed, mask) in its
+           place, as core/chunked.host_feed would make them from the codes,
+           written by the parser's encode threads; over-long reads and the
+           pure-Python fallback still give codes
   lengths  int32 [chunk_reads]; rows >= fill are 0
   blob     uint8 concatenated raw sequence bytes of the fill reads
   blob_off int64 [fill+1] per-row offsets into blob
@@ -29,10 +33,14 @@ from ..io import fastx
 
 def stream_chunks(path: str, chunk_reads: int, batch_reads: int,
                   max_len: int, mean_len: int = 0, start: int = 0,
-                  timer: PhaseTimer | None = None):
+                  timer: PhaseTimer | None = None,
+                  packed_half: int | None = None):
     """Yield chunk tuples for `path`; native parser when supported.
     `start` (native parser only): the byte offset of the first record.
-    `timer` records the native parse thread's spans."""
+    `timer` records the native parse thread's spans.  `packed_half`, a
+    packed plan's half width (0 = none; io/fastx_native.NativeReader), has
+    the native parser yield the staged planes (the module's tuple
+    contract)."""
     rdr = None
     from ..io import fastx_native
 
@@ -46,8 +54,9 @@ def stream_chunks(path: str, chunk_reads: int, batch_reads: int,
     if rdr is not None:
         for c in fastx_native.chunks_prefetched(
                 path, chunk_reads, max_len, mean_len_hint=mean_len,
-                start=start, timer=timer):
-            yield c.codes, c.lengths, c.raw, c.raw_off, c.n
+                start=start, timer=timer, packed_half=packed_half):
+            yield (c.codes if c.planes is None else c.planes, c.lengths,
+                   c.raw, c.raw_off, c.n)
         return
     if start:
         raise ValueError(f"{path}: a byte offset needs the native reader")

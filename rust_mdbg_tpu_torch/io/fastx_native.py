@@ -7,9 +7,11 @@ single-threaded pure-Python line parser on the hot ingest path — the
 TPU-side equivalent of the reference's seq_io parser thread + worker pool
 (rust-mdbg src/main.rs:834-838).
 
-Yields NativeChunk objects: fixed-shape code tensors plus the concatenated
-raw-byte blob and offsets (no per-read Python objects — at 114 Gbp scale,
-object churn IS the parser bottleneck).
+Yields NativeChunk objects: fixed-shape code tensors (or, in packed mode,
+the chunked driver's staged 2-bit and mask planes, written by the parser's
+encode threads) plus the concatenated raw-byte blob and offsets (no
+per-read Python objects — at 114 Gbp scale, object churn IS the parser
+bottleneck).
 """
 
 from __future__ import annotations
@@ -45,7 +47,11 @@ class NativeChunk:
     """One parsed chunk.
 
     codes:   uint8 [cap, L]; only the first lengths[i] bytes of each row are
-             meaningful (callers mask by length).
+             meaningful (callers mask by length).  None in packed mode,
+             but for an over-long read's singleton chunk.
+    planes:  packed mode: (packed uint8 [cap, W/4], mask uint8 [cap, W/8]),
+             core/chunked.host_feed's arrays for these reads, W the half
+             width where every read fits it, else L; None otherwise.
     lengths: int32 [cap]; rows >= n are 0.
     raw:     concatenated sequence bytes of the n reads.
     raw_off: int64 [n+1] offsets into raw.
@@ -53,7 +59,7 @@ class NativeChunk:
     start_index: global index of the chunk's first read.
     """
 
-    codes: np.ndarray
+    codes: np.ndarray | None
     lengths: np.ndarray
     raw: np.ndarray
     raw_off: np.ndarray
@@ -61,6 +67,7 @@ class NativeChunk:
     ids_off: np.ndarray
     n: int
     start_index: int
+    planes: tuple | None = None
 
     def id_str(self, i: int) -> str:
         return bytes(self.ids[self.ids_off[i]:self.ids_off[i + 1]]).decode()
@@ -71,15 +78,24 @@ class NativeReader:
 
     def __init__(self, path: str, chunk_reads: int, max_len: int,
                  nthreads: int | None = None, mean_len_hint: int = 0,
-                 start: int = 0):
+                 start: int = 0, packed_half: int | None = None):
         """`start`: the byte offset of the first record to parse (plain
-        files only)."""
+        files only).  `packed_half`: None reads codes; an int reads packed
+        planes (fx_next_packed), at that half width (0 = none) where a
+        chunk's reads fit it; max_len and it are then multiples of 8."""
+        if packed_half is not None and (max_len % 8 or packed_half % 8):
+            raise ValueError(f"packed planes need widths divisible by 8, "
+                             f"not {max_len} and {packed_half}")
         lib = load("fastx")
         lib.fx_open.restype = ctypes.c_void_p
         lib.fx_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
         lib.fx_next.restype = ctypes.c_int64
         lib.fx_next.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int64] + [ctypes.c_void_p] * 8
+        lib.fx_next_packed.restype = ctypes.c_int64
+        lib.fx_next_packed.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_int64, ctypes.c_int64] \
+            + [ctypes.c_void_p] * 11
         lib.fx_long_len.restype = ctypes.c_int64
         lib.fx_long_len.argtypes = [ctypes.c_void_p]
         lib.fx_long.restype = ctypes.c_int64
@@ -100,6 +116,7 @@ class NativeReader:
                              "plain file within its size can")
         self.chunk_reads = chunk_reads
         self.max_len = max_len
+        self.packed_half = packed_half
         # raw blob sized to the worst case the codes buffer admits would be
         # cap*L; reads are typically much shorter than the padded width, so
         # size to the observed mean with headroom and let the parser return
@@ -125,19 +142,32 @@ class NativeReader:
         # of malloc'd (empty) memory run ~100x slower than the calloc/zero
         # path (20 s vs 0.2 s for a 400 MB chunk buffer) and dominate the
         # whole ingest otherwise
-        codes = np.zeros((cap, L), dtype=np.uint8)
         lengths = np.zeros(cap, dtype=np.int32)
         raw = np.zeros(self._raw_cap, dtype=np.uint8)
         raw_off = np.zeros(cap + 1, dtype=np.int64)
         ids = np.zeros(self._ids_cap, dtype=np.uint8)
         ids_off = np.zeros(cap + 1, dtype=np.int32)
         status = np.zeros(1, dtype=np.int32)
-        n = self._lib.fx_next(
-            self._h, cap, L, self._ptr(codes), self._ptr(lengths),
-            self._ptr(raw), self._raw_cap, self._ptr(raw_off),
-            self._ptr(ids), self._ids_cap, self._ptr(ids_off),
-            self._ptr(status),
-        )
+        tail = (self._ptr(raw), self._raw_cap, self._ptr(raw_off),
+                self._ptr(ids), self._ids_cap, self._ptr(ids_off),
+                self._ptr(status))
+        codes = planes = None
+        if self.packed_half is None:
+            codes = np.zeros((cap, L), dtype=np.uint8)
+            n = self._lib.fx_next(self._h, cap, L, self._ptr(codes),
+                                  self._ptr(lengths), *tail)
+        else:
+            # both planes at width L; the parser lays them out at the width
+            # it chose from the buffers' start
+            packed = np.zeros(cap * L // 4, dtype=np.uint8)
+            mask = np.zeros(cap * L // 8, dtype=np.uint8)
+            width = np.zeros(1, dtype=np.int64)
+            n = self._lib.fx_next_packed(
+                self._h, cap, L, self.packed_half, self._ptr(packed),
+                self._ptr(mask), self._ptr(width), self._ptr(lengths), *tail)
+            W = int(width[0])
+            planes = (packed[: cap * W // 4].reshape(cap, W // 4),
+                      mask[: cap * W // 8].reshape(cap, W // 8))
         st = int(status[0])
         if st == _STATUS_BAD:
             raise ValueError("malformed FASTX record in native parser")
@@ -149,7 +179,7 @@ class NativeReader:
             codes=codes, lengths=lengths,
             raw=raw[: raw_off[n]], raw_off=raw_off[: n + 1],
             ids=ids[: ids_off[n]], ids_off=ids_off[: n + 1],
-            n=int(n), start_index=self._count,
+            n=int(n), start_index=self._count, planes=planes,
         )
         self._count += int(n)
         return chunk
@@ -201,7 +231,8 @@ PUMP_THREAD = "fastx-prefetch"
 
 def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
                       mean_len_hint: int = 0, depth: int = 1,
-                      start: int = 0, timer: PhaseTimer | None = None):
+                      start: int = 0, timer: PhaseTimer | None = None,
+                      packed_half: int | None = None):
     """Iterate NativeChunks with a background parse thread so file parsing
     overlaps device compute (from byte `start`, a record's first byte).
 
@@ -219,11 +250,13 @@ def chunks_prefetched(path: str, chunk_reads: int, max_len: int,
 
     The pump's spans go to `timer`, marked with the chunk's index in the
     file: `feed.token-wait` (for chunk i's build token) and `feed.parse`
-    (buffer allocation and the native parse; the parse that finds the end
-    of the input marks none)."""
+    (buffer allocation and the native parse, in packed mode the planes'
+    pack too; the parse that finds the end of the input marks none).
+    `packed_half` is NativeReader's."""
     timer = timer or PhaseTimer()
     rdr = NativeReader(path, chunk_reads, max_len,
-                       mean_len_hint=mean_len_hint, start=start)
+                       mean_len_hint=mean_len_hint, start=start,
+                       packed_half=packed_half)
     q: queue.Queue = queue.Queue(maxsize=depth)
     build_tokens = threading.Semaphore(depth)
     stop = threading.Event()

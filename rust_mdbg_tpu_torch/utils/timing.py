@@ -128,11 +128,10 @@ class PhaseTimer:
                 span.update(start_ns=t0, end_ns=time.perf_counter_ns(),
                             cpu_s=time.thread_time() - cpu0)
                 stack.pop()
-                rss = vm_rss_bytes() if self._job is not None else 0
                 with self._lock:
                     self.spans.append(span)
-                    if rss > self.counters.get("rss_high_bytes", 0):
-                        self.counters["rss_high_bytes"] = rss
+                if self._job is not None:
+                    self.high("rss_high_bytes", vm_rss_bytes())
 
     @contextlib.contextmanager
     def job(self):
@@ -153,6 +152,12 @@ class PhaseTimer:
         """Add n to the counter `name`."""
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
+
+    def high(self, name: str, n: int):
+        """Raise the counter `name` to n where n is above it: a high-water
+        mark (0 before the first reading)."""
+        with self._lock:
+            self.counters[name] = max(self.counters.get(name, 0), n)
 
     @property
     def phases(self) -> list[tuple[str, float]]:

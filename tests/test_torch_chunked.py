@@ -410,3 +410,159 @@ def test_seq_ref_cuts_chunked_matches_jax(tmp_path, reads, hpc_reads, kind):
     assemble_device_chunked(path, Params(**dict(kw, seq_ref_cuts=False)), pe,
                             chunk_reads=128, device="cpu")
     assert (_records(pe) != _records(pt)) == (kind == "raw")
+
+
+@pytest.fixture(scope="module")
+def mixed_reads(reads, tmp_path_factory):
+    """The corpus above with its 150th read replaced by full-length reads
+    end to end: two (3 kb: past the half width 1,536 the other chunks are
+    staged at, within the staging width 3,072 of the 100 sampled reads)
+    in `wide`, three (4.5 kb: an over-long read) in `long`."""
+    d = tmp_path_factory.mktemp("mixed")
+    with open(reads) as f:
+        lines = f.read().split("\n")
+    full = [x for x in lines[1::2] if len(x) == 1500]
+    out = {}
+    for name, n in (("wide", 2), ("long", 3)):
+        ls = list(lines)
+        ls[2 * 149 + 1] = "".join(full[:n])
+        out[name] = str(d / f"{name}.fa")
+        with open(out[name], "w") as f:
+            f.write("\n".join(ls))
+    return out
+
+
+def _staged_widths(monkeypatch):
+    """Record the staged width of every chunk the driver constructs."""
+    from rust_mdbg_tpu_torch.core import chunked
+
+    widths = []
+    accepted = chunked.construct_accepted
+
+    def construct_accepted(params, plan, counter, staged, *a):
+        widths.append(staged[0].shape[1] * 4)
+        return accepted(params, plan, counter, staged, *a)
+
+    monkeypatch.setattr(chunked, "construct_accepted", construct_accepted)
+    return widths
+
+
+@pytest.mark.parametrize("chunk_reads", [64, 256])
+def test_chunks_at_both_widths_match_jax(tmp_path, monkeypatch, mixed_reads,
+                                         chunk_reads):
+    """Chunks the parser packs at the half width and, where a read is past
+    it, at the staging width: the JAX package's bytes."""
+    widths = _staged_widths(monkeypatch)
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "torch")
+    sj = jax_chunked(mixed_reads["wide"], JaxParams(engine="device", **KW),
+                     pj, chunk_reads=chunk_reads)
+    st = assemble_device_chunked(mixed_reads["wide"], Params(**KW), pt,
+                                 chunk_reads=chunk_reads, device="cpu")
+    assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa", "rb").read()
+    assert _records(pj) == _records(pt)
+    assert st["nb_nodes"] == sj["nb_nodes"] > 100
+    assert st["nb_chunks"] == sj["nb_chunks"] == len(widths)
+    # the wide read is in the first chunk of 256, the third of 64
+    assert widths.count(3072) == 1 and widths.index(3072) == \
+        (2 if chunk_reads == 64 else 0)
+    assert set(widths) == {1536, 3072}
+    c = st["counters"]
+    assert c["feed.parser_packed_chunks"] == st["nb_chunks"]
+    assert c["feed.host_packed_chunks"] == 0
+
+
+def test_over_long_read_matches_jax_fallback(tmp_path, monkeypatch,
+                                             mixed_reads):
+    """An over-long read among parser-packed chunks: host_feed packs its
+    singleton chunk, and the run writes the bytes of the JAX package's
+    streaming half (what its `assemble` runs after its driver raises)."""
+    import rust_mdbg_tpu.core.pipeline as jax_pipeline
+
+    widths = _staged_widths(monkeypatch)
+    monkeypatch.setattr(jax_pipeline, "_device_table_eligible",
+                        lambda *a: False)
+    kw = dict(KW, batch_reads=16)
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "torch")
+    sj = jax_pipeline.assemble(mixed_reads["long"],
+                               JaxParams(engine="device", **kw), pj)
+    st = assemble_device_chunked(mixed_reads["long"], Params(**kw), pt,
+                                 chunk_reads=64, device="cpu")
+    assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa", "rb").read()
+    assert _records(pj) == _records(pt)
+    assert st["nb_nodes"] == sj["nb_nodes"] > 40
+    assert st["replans"] == 1 and st["nb_chunks"] == 8
+    # the over-long read alone at staging_width(4,500)
+    assert widths == [1536] * 3 + [12288] + [1536] * 4
+    c = st["counters"]
+    assert c["feed.parser_packed_chunks"] == 7
+    assert c["feed.host_packed_chunks"] == 1
+
+
+def test_device_slot_frees_each_chunk_after_its_construct(tmp_path,
+                                                          monkeypatch,
+                                                          reads):
+    """Main slowed down (a merge that sleeps): every chunk's staged tensors
+    are freed by the time its merge starts, the next chunk's copy overlaps
+    that merge, and no two chunks' staged tensors are alive at once."""
+    import time
+    import weakref
+
+    from rust_mdbg_tpu_torch.core import chunked
+    from rust_mdbg_tpu_torch.core.nodetable import NodeTable
+
+    alive: dict = {}
+    accepted = chunked.construct_accepted
+
+    def construct_accepted(params, plan, counter, staged, *a):
+        i = len(alive)
+        alive[i] = True
+        weakref.finalize(staged[0], alive.__setitem__, i, False)
+        return accepted(params, plan, counter, staged, *a)
+
+    at_merge = []
+    merge = NodeTable.merge_chunk
+
+    def slow_merge(self, *a):
+        at_merge.append(alive[len(alive) - 1])  # the chunk just reduced
+        time.sleep(0.2)
+        return merge(self, *a)
+
+    monkeypatch.setattr(chunked, "construct_accepted", construct_accepted)
+    monkeypatch.setattr(NodeTable, "merge_chunk", slow_merge)
+    st = assemble_device_chunked(reads, Params(**KW), str(tmp_path / "t"),
+                                 chunk_reads=64, device="cpu")
+    n = st["nb_chunks"]
+    assert n == 7 and at_merge == [False] * n
+    assert not any(alive.values())
+    assert st["counters"]["feed.staged_high"] == 1
+    spans = st["spans"]
+    merges = {s["chunk"]: s for s in spans if s["name"] == "merge"}
+    copies = {s["chunk"]: s for s in spans if s["name"] == "feed.copy"}
+    for i in range(n - 1):
+        assert copies[i + 1]["start_ns"] < merges[i]["end_ns"]
+
+
+def test_device_slot_under_a_short_switch_interval(tmp_path, reads):
+    """The stager, the parser and main handing chunks over with the
+    interpreter switching threads every few microseconds: still one
+    chunk staged at a time, every chunk through the parser's planes, and
+    the files of a run at the default interval."""
+    import sys
+
+    ref = assemble_device_chunked(reads, Params(**KW), str(tmp_path / "a"),
+                                  chunk_reads=16, device="cpu")
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        st = assemble_device_chunked(reads, Params(**KW),
+                                     str(tmp_path / "b"), chunk_reads=16,
+                                     device="cpu")
+    finally:
+        sys.setswitchinterval(old)
+    assert st["nb_chunks"] == ref["nb_chunks"] == 25
+    c = st["counters"]
+    assert c["feed.staged_high"] == 1
+    assert c["feed.parser_packed_chunks"] == 25
+    assert (tmp_path / "a.gfa").read_bytes() == (tmp_path / "b.gfa") \
+        .read_bytes()
+    assert _records(str(tmp_path / "a")) == _records(str(tmp_path / "b"))
