@@ -64,8 +64,10 @@ chunk's `feed-wait`, `construct`, `merge`, `gather`, `meta`, `sequences`,
 thread (io/fastx_native.PUMP_THREAD) `feed.token-wait` and `feed.parse`
 (the planes' pack included).  Counters: `feed.parser_packed_chunks` and
 `feed.host_packed_chunks`, the chunks whose planes the parser wrote and
-those host_feed packed, and `feed.staged_high`, the most chunks whose
-staged tensors were alive at once.
+those host_feed packed, `feed.staged_high`, the most chunks whose
+staged tensors were alive at once, `sequences.frames`, the LZ4 frames of
+the run's .sequences shards, and `sequences.workers_high`, the most
+threads one shard's writer ran (io/sequences.write_records_native).
 """
 
 from __future__ import annotations
@@ -425,12 +427,14 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
                     gf_arrs.append(gflag)
             if not params.no_basespace:
                 with timer.phase("sequences", cid):
-                    write_records_native(
+                    wrote = write_records_native(
                         f"{prefix}.{chunk_i}.sequences", params.k, params.l,
                         index_c, vec, blob, abs_start, abs_end, rev,
                         seq_shift0, seq_shift1,
                         hash_bound=params.hash_bound if rec_ok else 0,
                         mpos=mpos)
+                timer.count("sequences.frames", wrote["frames"])
+                timer.high("sequences.workers_high", wrote["workers"])
         with timer.phase("reset", cid):
             if ccounter is counter:
                 counter.reset_chunk()
@@ -449,9 +453,11 @@ def assemble_device_chunked(reads_path: str, params: Params, prefix: str,
     device_slot = threading.Semaphore(1)
     live_lock = threading.Lock()
     n_live = 0
-    for name in ("feed.parser_packed_chunks", "feed.host_packed_chunks"):
+    for name in ("feed.parser_packed_chunks", "feed.host_packed_chunks",
+                 "sequences.frames"):
         timer.count(name, 0)
-    timer.high("feed.staged_high", 0)
+    for name in ("feed.staged_high", "sequences.workers_high"):
+        timer.high(name, 0)
 
     def track_staged(t: torch.Tensor):
         """Count a staged chunk alive until its 2-bit plane `t` is freed

@@ -54,12 +54,41 @@ class SequencesWriter:
         self._w.close()
 
 
+#: a .sequences frame ends after the record that brings its text to this
+#: many bytes (native/seqwriter.cpp FRAME_TEXT)
+FRAME_TEXT = 4 << 20
+
+#: a record's bytes besides its sequence, at most: the index (10 digits),
+#: k values of up to 20 digits and ", " between them, two shifts of 5
+#: digits and the separators
+_RECORD_MAX_BYTES = 10 + 5 + 5 + 14
+
+
+def cpu_set_size() -> int:
+    """The CPUs this process may run on (its affinity mask)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        return os.cpu_count() or 1
+
+
+def writer_workers(n: int, k: int, seq_bytes: int,
+                   budget: int | None = None) -> int:
+    """Threads for one `write_records_native` call: the frames its text can
+    make at most, bounded by `budget` (default: the CPU set's size).  A
+    text under one frame gets one worker, the single-thread path."""
+    budget = cpu_set_size() if budget is None else budget
+    text = seq_bytes + n * (_RECORD_MAX_BYTES + 22 * k)
+    return max(1, min(budget, text // FRAME_TEXT + 1))
+
+
 def write_records_native(path: str, k: int, l: int, index, vecs, reads_buf,
                          abs_start, abs_end, rev, shift0, shift1,
-                         hash_bound: int = 0, accel: int = 1, mpos=None):
-    """Bulk-write node records with the native C++ writer (one pass:
-    slice + revcomp + format + LZ4F).  `reads_buf` is a bytes-like buffer of
-    raw ASCII bases; per node the sequence is reads_buf[abs_start:abs_end],
+                         hash_bound: int = 0, accel: int = 1, mpos=None,
+                         workers: int | None = None) -> dict:
+    """Bulk-write node records with the native C++ writer (slice + revcomp
+    + format + LZ4F).  `reads_buf` is a bytes-like buffer of raw ASCII
+    bases; per node the sequence is reads_buf[abs_start:abs_end],
     reverse-complemented where rev is set.
 
     vecs=None: the writer RE-DERIVES each node's k minimizer values from the
@@ -70,7 +99,13 @@ def write_records_native(path: str, k: int, l: int, index, vecs, reads_buf,
     ([n, k] u32 record-space positions, stored orientation) the writer hashes
     only the k l-mers at those positions instead of rolling over every base
     (~10x less hashing).  `accel` is the LZ4 skip-acceleration factor
-    (1 = max ratio)."""
+    (1 = max ratio).
+
+    The writer measures the records and encodes the file's 4 MiB frames on
+    worker threads: at most `workers` (default: the CPU set's size), and
+    no more than the frames the text can make (writer_workers).  The
+    file's bytes are the same for every count.  Returns {"frames": frames
+    written, "workers": the most threads a pass of the call ran}."""
     import ctypes
 
     import numpy as np
@@ -83,6 +118,7 @@ def write_records_native(path: str, k: int, l: int, index, vecs, reads_buf,
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int,
     ] + [ctypes.c_void_p] * 8 + [ctypes.c_uint64, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_void_p]
 
     index = np.ascontiguousarray(index, dtype=np.uint32)
@@ -119,11 +155,15 @@ def write_records_native(path: str, k: int, l: int, index, vecs, reads_buf,
     if mpos is not None:
         mpos = np.ascontiguousarray(mpos, dtype=np.uint32)
         mpos_ptr = mpos.ctypes.data_as(ctypes.c_void_p)
+    workers = writer_workers(n, k_, int((abs_end - abs_start).sum()),
+                             workers)
+    out = np.zeros(2, dtype=np.int64)
     r = lib.seqs_write(
         str(path).encode(), n, k_, k, l,
         ptr(index), vec_ptr, buf_ptr, ptr(abs_start), ptr(abs_end),
         ptr(rev), ptr(shift0), ptr(shift1),
         ctypes.c_uint64(int(hash_bound)), int(accel), mpos_ptr,
+        int(workers), ptr(out),
     )
     if r == -2:
         raise RuntimeError(
@@ -131,6 +171,7 @@ def write_records_native(path: str, k: int, l: int, index, vecs, reads_buf,
             "(recompute gate violated)")
     if r != 0:
         raise RuntimeError(f"seqs_write failed for {path}")
+    return dict(frames=int(out[0]), workers=int(out[1]))
 
 
 def write_records_native_sharded(prefix: str, k: int, l: int, index, vecs,
@@ -138,13 +179,16 @@ def write_records_native_sharded(prefix: str, k: int, l: int, index, vecs,
                                  shift0, shift1, n_shards: int = 4):
     """Parallel bulk write across `prefix.<i>.sequences` shards (the
     reference's per-thread multi-file contract, main.rs:616-630); the C++
-    writer releases the GIL so shards write concurrently."""
+    writer releases the GIL so shards write concurrently, and the CPU set
+    is shared among them: each shard's call takes at most its share of
+    workers."""
     import threading
 
     import numpy as np
 
     n = len(index)
     n_shards = max(1, min(n_shards, max(1, n // 1024)))
+    share = max(1, cpu_set_size() // n_shards)
     bounds = np.linspace(0, n, n_shards + 1).astype(int)
     threads = []
     for s in range(n_shards):
@@ -154,6 +198,7 @@ def write_records_native_sharded(prefix: str, k: int, l: int, index, vecs,
             args=(sequences_path(prefix, s), k, l, index[a:b], vecs[a:b],
                   reads_buf, abs_start[a:b], abs_end[a:b], rev[a:b],
                   shift0[a:b], shift1[a:b]),
+            kwargs=dict(workers=share),
         )
         t.start()
         threads.append(t)

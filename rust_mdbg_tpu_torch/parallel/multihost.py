@@ -441,12 +441,14 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
                         meta = r[:, 1:1 + mc].to(torch.int32).cpu().numpy() \
                             .view(np.uint32)
                         rows = meta[:, 4].astype(np.int64)
+                        # the host's processes share its cores: one
+                        # writer thread a process
                         write_records_native(
                             f"{prefix}.h{pid}x{j}.sequences", params.k,
                             params.l, gid, u64.to_numpy(r[:, 1 + mc:]), blob,
                             *record_spans(meta, offsets,
                                           (rows // B) * B_host + rows % B_host,
-                                          params.l))
+                                          params.l), workers=1)
             with timer.phase("gfa"):
                 parts, nb_edges, n_removed = gfa_parts(mesh, shards, bases,
                                                        params.presimp)
@@ -481,7 +483,8 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
                         index[mine], nodes["vec"][mine], blob,
                         *record_spans(meta[mine], offsets,
                                       (rows[mine] // B) * B_host
-                                      + rows[mine] % B_host, params.l))
+                                      + rows[mine] % B_host, params.l),
+                        workers=1)
             stats["nb_windows"] = int(nodes["count"].sum())
             with timer.phase("gfa"):
                 if pid == 0:

@@ -566,3 +566,29 @@ def test_device_slot_under_a_short_switch_interval(tmp_path, reads):
     assert (tmp_path / "a.gfa").read_bytes() == (tmp_path / "b.gfa") \
         .read_bytes()
     assert _records(str(tmp_path / "a")) == _records(str(tmp_path / "b"))
+
+
+@pytest.mark.parametrize("mode", ["vector", "recompute"])
+def test_chunked_counts_the_sequences_frames(tmp_path, reads, hpc_reads,
+                                             jax_hpc_runs, mode):
+    """The driver counts its .sequences writers' frames and workers, and
+    every chunk's shard holds the bytes the JAX package's single-thread
+    writer wrote for that chunk."""
+    if mode == "recompute":
+        pj, sj = jax_hpc_runs[64]
+        path, p = hpc_reads, Params(reads_already_hpc=True, **KW)
+    else:
+        pj = str(tmp_path / "jax")
+        sj = jax_chunked(reads, JaxParams(engine="device", **KW), pj,
+                         chunk_reads=64)
+        path, p = reads, Params(**KW)
+    pt = str(tmp_path / "torch")
+    st = assemble_device_chunked(path, p, pt, chunk_reads=64, device="cpu")
+    c = st["counters"]
+    assert c["sequences.frames"] >= st["nb_chunks"] == sj["nb_chunks"] > 1
+    assert c["sequences.workers_high"] >= 1
+    assert open(pj + ".gfa", "rb").read() == open(pt + ".gfa", "rb").read()
+    for i in range(st["nb_chunks"]):
+        with open(f"{pj}.{i}.sequences", "rb") as fj, \
+                open(f"{pt}.{i}.sequences", "rb") as ft:
+            assert fj.read() == ft.read()

@@ -5,6 +5,7 @@ feed threads' spans a chunk, their chunk ids, the main thread's tree and
 their twins in a torch.profiler trace)."""
 
 import json
+import mmap
 import os
 import sys
 import threading
@@ -120,8 +121,12 @@ def test_job_is_every_threads_root_and_reads_rss():
 
     def feed():
         with t.phase("feed.parse", 0):
-            # written through, so the job's resident memory rises
-            got.append(b"\x01" * (8 << 20))
+            # a fresh mapping, written through, so the job's resident
+            # memory rises whatever free pages the heap holds
+            m = mmap.mmap(-1, 8 << 20)
+            for off in range(0, len(m), mmap.PAGESIZE):
+                m[off] = 1
+            got.append(m)
 
     with t.job() as job:
         with t.phase("plan"):
