@@ -1131,6 +1131,7 @@ def slice_parity(tmp: str, Params) -> dict:
 def prehpc_parity(tmp: str, Params) -> dict:
     """The parity corpus taken as pre-HPC'd input: recompute mode on the
     card, on the CPU, and on the card with the host edge join."""
+    from rust_mdbg_tpu_torch.core import chunked
     from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
     from rust_mdbg_tpu_torch.ops import kernels
 
@@ -1143,12 +1144,13 @@ def prehpc_parity(tmp: str, Params) -> dict:
     launched = kernels.nthash_select.launches - before
     sc = assemble_device_chunked(reads, p, os.path.join(tmp, "hc"),
                                  device="cpu")
-    os.environ["MDBG_CHUNK_DEVICE_JOIN"] = "0"
+    # a catalog of no rows spills at the first crossing: the host join
+    rows, chunked.CATALOG_ROWS = chunked.CATALOG_ROWS, 0
     try:
         sh = assemble_device_chunked(reads, p, os.path.join(tmp, "hh"),
                                      device="cuda")
     finally:
-        del os.environ["MDBG_CHUNK_DEVICE_JOIN"]
+        chunked.CATALOG_ROWS = rows
     gfa = {x: open(os.path.join(tmp, f"{x}.gfa"), "rb").read()
            for x in ("hg", "hc", "hh")}
     if gfa["hg"] != gfa["hc"]:
@@ -1260,12 +1262,22 @@ def main_path(tmp: str, Params, syn: dict, genome_mbp: float,
     return out
 
 
+def first_staged_chunk(reads: str, p, plan: dict, dev):
+    """The first chunk of `reads` as core/fastx_feed.StagedFeed stages it
+    under `plan` on `dev`, ready for the current stream."""
+    from rust_mdbg_tpu_torch.core.fastx_feed import StagedFeed
+    from rust_mdbg_tpu_torch.utils.timing import PhaseTimer
+
+    with StagedFeed(reads, p, plan, dev, PhaseTimer()) as feed:
+        return next(feed)
+
+
 def construct_breakdown(tmp: str, Params) -> dict:
     """Device time by kernel over one chunk of the main-path corpus:
     construct_batches + finalize_chunk under torch.profiler, after a
     warm-up run of the same chunk.  Planned, staged and run through the
-    driver's own steps (plan_chunks, host_feed, to_device, new_counter,
-    construct_chunk), outside assemble_device_chunked.
+    driver's own steps (plan_chunks, the feed's first staged chunk,
+    new_counter, construct_chunk), outside assemble_device_chunked.
 
     The busy share is over the profiled window, which tracing the host's
     ~7,000 op launches stretches, so it reads low; the median unprofiled
@@ -1276,24 +1288,14 @@ def construct_breakdown(tmp: str, Params) -> dict:
 
     from rust_mdbg_tpu_torch.bench import short_kernel_name
     from rust_mdbg_tpu_torch.core.chunked import (construct_chunk,
-                                                  host_feed, new_counter,
-                                                  plan_chunks, to_device)
-    from rust_mdbg_tpu_torch.io.fastx_native import NativeReader
+                                                  new_counter, plan_chunks)
 
     reads = os.path.join(tmp, "main.fa")
     p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
     plan = plan_chunks(reads, p)
-    rdr = NativeReader(reads, plan["chunk_reads"], plan["L"],
-                       mean_len_hint=plan["mean_len"])
-    try:
-        c = rdr.next_chunk()
-    finally:
-        rdr.close()
-    codes, lens, fill = c.codes, c.lengths, c.n
     dev = torch.device("cuda")
-    host = host_feed(codes, lens, fill, plan)
-    fed_width = host[0].shape[1] * (4 if plan["packed"] else 1)
-    staged, lens_d = to_device(host, lens, dev)
+    c = first_staged_chunk(reads, p, plan, dev)
+    staged, lens_d, fill = c.planes, c.lens, c.fill
     counter = new_counter(p, plan, dev)
 
     def chunk():
@@ -1345,7 +1347,7 @@ def construct_breakdown(tmp: str, Params) -> dict:
     return dict(
         reads=int(fill), batches=batches, kernel_launches=launches,
         launches_a_batch=launches / batches,
-        width=int(codes.shape[1]), fed_width=int(fed_width),
+        width=int(plan["L"]), fed_width=int(c.width),
         window_us=wall_us, unprofiled_us=unprofiled_us,
         device_events=len(spans),
         device_us=sum(t for t, _ in by_name.values()), busy_us=busy,
@@ -1509,31 +1511,41 @@ def whole_run_main(tmp: str, Params, syn: dict, leg: str, chunked=None):
 def finalize_breakdown(tmp: str, Params) -> dict:
     """Device time by torch op over one finalize_compact of the whole
     pre-HPC'd main corpus: the buffers are filled through the whole-run
-    driver's own steps (plan_table, new_table_counter,
-    construct_table_chunk), then the reduction runs once to warm up, three
-    times unprofiled (median wall) and three times under torch.profiler."""
+    driver's own steps (plan_table, new_table_counter, the feed's staged
+    chunks through construct_batches), then the reduction runs once to
+    warm up, three times unprofiled (median wall) and three times under
+    torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from rust_mdbg_tpu_torch.core.fastx_feed import stream_chunks
-    from rust_mdbg_tpu_torch.core.pipeline import (construct_table_chunk,
+    from rust_mdbg_tpu_torch.core.fastx_feed import StagedFeed
+    from rust_mdbg_tpu_torch.core.pipeline import (CHUNK_BATCHES,
                                                    new_table_counter,
                                                    plan_table)
+    from rust_mdbg_tpu_torch.ops.sort_count import construct_batches
+    from rust_mdbg_tpu_torch.utils.timing import PhaseTimer
 
     reads = os.path.join(tmp, "main.fa")
     p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2,
                reads_already_hpc=True, max_read_len=24_576)
     plan = plan_table(reads, p)
-    counter = new_table_counter(p, plan, torch.device(DEVICE))
+    dev = torch.device(DEVICE)
+    counter = new_table_counter(p, plan, dev)
     read_base = 0
-    for codes, lens, _blob, _off, fill in stream_chunks(
-            reads, plan["chunk_reads"], plan["B"], plan["L"],
-            plan["mean_len"]):
-        if fill:
-            construct_table_chunk(p, plan, counter, codes, lens, fill,
-                                  read_base)
-            read_base += plan["chunk_reads"]
+    B, CH = plan["B"], plan["chunk_reads"]
+    with StagedFeed(reads, p, plan, dev, PhaseTimer()) as feed:
+        for c in feed:
+            if read_base + CH > counter.read_cap:
+                counter.grow(read_base + CH)
+            construct_batches(p, c.planes, c.lens, counter.buffers, B=B,
+                              M=plan["M"], w_slot=plan["w_slot"], batch_lo=0,
+                              batch_hi=min(CHUNK_BATCHES,
+                                           (c.fill + B - 1) // B),
+                              read_base=read_base)
+            read_base += CH
+            del c
+            feed.release()
     pending = counter.finalize_dispatch()
     torch.cuda.synchronize()
     out = pending()
@@ -1993,36 +2005,27 @@ def syncmer_breakdown(tmp: str, Params) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from rust_mdbg_tpu_torch.core.chunked import (host_feed, plan_chunks,
-                                                  to_device)
-    from rust_mdbg_tpu_torch.io.fastx_native import NativeReader
+    from rust_mdbg_tpu_torch.core.chunked import plan_chunks
     from rust_mdbg_tpu_torch.ops.extract import extract_count
     from rust_mdbg_tpu_torch.ops.pack import unpack_codes
 
     reads = os.path.join(tmp, "main.fa")
     p = Params(k=21, l=14, min_kmer_abundance=2, **SYNC_KW)
     plan = plan_chunks(reads, p)
-    rdr = NativeReader(reads, plan["chunk_reads"], plan["L"],
-                       mean_len_hint=plan["mean_len"])
-    try:
-        c = rdr.next_chunk()
-    finally:
-        rdr.close()
     dev = torch.device("cuda")
-    staged, lens_d = to_device(host_feed(c.codes, c.lengths, c.n, plan),
-                               c.lengths, dev)
+    c = first_staged_chunk(reads, p, plan, dev)
+    staged, lens_d = c.planes, c.lens
     B = plan["B"]
 
     def batch():
-        codes = (unpack_codes(staged[0][:B], staged[1][:B])
-                 if plan["packed"] else staged[0][:B])
+        codes = unpack_codes(staged[0][:B], staged[1][:B])
         return extract_count(codes, lens_d[:B], l=p.l, k=p.k,
                              hash_bound=p.hash_bound, M=plan["M"],
                              syncmer=(p.s, p.syncmer_hash_bound))
 
     out = batch()
     n_min = float((out["nw"].float().mean() + p.k - 1))
-    width = int(staged[0].shape[1] * (4 if plan["packed"] else 1))
+    width = c.width
     del out
     torch.cuda.synchronize()
     walls = []
@@ -2129,8 +2132,8 @@ def branch_legs(tmp: str, Params, np) -> dict:
     with knobs that exist and held cuda = cpu in .gfa bytes and .sequences
     records, with the stat that shows the branch was taken:
 
-    - catalog_spill: MDBG_CHUNK_CAT_CAP at half the pre-HPC parity graph's
-      nodes, chunks of 256 reads: the device key catalog fills and spills
+    - catalog_spill: core/chunked.CATALOG_ROWS at half the pre-HPC parity
+      graph's nodes, chunks of 256 reads: the device key catalog fills and spills
       to the host join (no `catalog_rows` in the stats); against
       prehpc_parity's CPU run;
     - counter_grow: the whole run at k = 7, minabund 17 on cap.fa, whose read
@@ -2144,7 +2147,7 @@ def branch_legs(tmp: str, Params, np) -> dict:
     - g_slots: pre-HPC hub.fa: a key group over G_SLOTS, the host join from
       the permuted device catalog (`edge_join` host, `catalog_rows` set).
     """
-    from rust_mdbg_tpu_torch.core import pipeline
+    from rust_mdbg_tpu_torch.core import chunked, pipeline
     from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
     from rust_mdbg_tpu_torch.ops import kernels
 
@@ -2153,20 +2156,21 @@ def branch_legs(tmp: str, Params, np) -> dict:
     pre = Params(**base, reads_already_hpc=True)
     out = {}
 
-    def leg(name, run, ref=None, env=None):
+    def leg(name, run, ref=None, catalog_rows=None):
         """run(device, prefix) -> stats, on the card and (without `ref`,
         the prefix of a CPU run of the same input) on the CPU."""
         t0 = time.perf_counter()
         g, c = os.path.join(tmp, f"{name}_g"), os.path.join(tmp, f"{name}_c")
-        os.environ.update(env or {})
+        rows = chunked.CATALOG_ROWS
+        if catalog_rows is not None:
+            chunked.CATALOG_ROWS = catalog_rows
         try:
             before = kernels.nthash_select.launches
             sg = run(DEVICE, g)
             launched = kernels.nthash_select.launches - before
             sc = run("cpu", c) if ref is None else None
         finally:
-            for key in env or {}:
-                del os.environ[key]
+            chunked.CATALOG_ROWS = rows
         _same_outputs(f"branch leg ({name}), cuda vs cpu", g, ref or c)
         if launched <= 0 or sg["nb_nodes"] <= 0:
             raise SystemExit(f"branch leg ({name}): {launched} launches, "
@@ -2181,7 +2185,7 @@ def branch_legs(tmp: str, Params, np) -> dict:
         lambda dev, pfx: assemble_device_chunked(
             os.path.join(tmp, "parity.fa"), pre, pfx, chunk_reads=256,
             device=dev),
-        ref=os.path.join(tmp, "hc"), env={"MDBG_CHUNK_CAT_CAP": str(cap)})
+        ref=os.path.join(tmp, "hc"), catalog_rows=cap)
     o.update(cat_cap=cap, chunks=sg["nb_chunks"],
              edge_join=sg.get("edge_join"),
              catalog_rows=sg.get("catalog_rows"))
@@ -2568,30 +2572,22 @@ def profiled_chunk(tmp: str, Params) -> dict:
     import torch
 
     from rust_mdbg_tpu_torch.core.chunked import (construct_chunk,
-                                                  host_feed, new_counter,
-                                                  plan_chunks, to_device)
-    from rust_mdbg_tpu_torch.io.fastx_native import NativeReader
+                                                  new_counter, plan_chunks)
     from rust_mdbg_tpu_torch.ops import kernels
     from rust_mdbg_tpu_torch.utils.timing import PhaseTimer
 
     reads = os.path.join(tmp, "parity.fa")
     p = Params(k=21, l=14, density=0.003, min_kmer_abundance=2)
     plan = plan_chunks(reads, p)
-    rdr = NativeReader(reads, plan["chunk_reads"], plan["L"],
-                       mean_len_hint=plan["mean_len"])
-    try:
-        c = rdr.next_chunk()
-    finally:
-        rdr.close()
     dev = torch.device(DEVICE)
-    staged, lens_d = to_device(host_feed(c.codes, c.lengths, c.n, plan),
-                               c.lengths, dev)
+    c = first_staged_chunk(reads, p, plan, dev)
+    staged, lens_d = c.planes, c.lens
     counter = new_counter(p, plan, dev)
     prof_dir = os.path.join(tmp, "profile")
     timer = PhaseTimer()
     kernels.nthash_select.launches = 0
     with timer.phase("construct", profile_dir=prof_dir):
-        construct_chunk(p, plan, counter, staged, lens_d, c.n)
+        construct_chunk(p, plan, counter, staged, lens_d, c.fill)
         if dev.type == "cuda":
             torch.cuda.synchronize()
     launches = kernels.nthash_select.launches

@@ -41,7 +41,7 @@ import torch
 from ..io import fastx
 from ..io.ec_data import EcWriter
 from ..io.sequences import SequencesWriter, remove_stale
-from ..params import Params, staging_width
+from ..params import Params
 from ..utils.seq import normalize_vec, revcomp
 from ..utils.timing import PhaseTimer
 from .chunked import (assemble_device_chunked, check_device_driver,
@@ -49,6 +49,7 @@ from .chunked import (assemble_device_chunked, check_device_driver,
 from .device_out import (PhasedEmitter, emit_device_outputs,
                          minimizer_recompute_ok)
 from .extract import extract_windows_host
+from .fastx_feed import StagedFeed, staging_plan
 from .graph import build_gfa
 from .nodetable import NodeTable
 
@@ -353,25 +354,20 @@ def whole_run_budget(dev: torch.device) -> int:
 
 def plan_table(reads_path: str, params: Params, L: int = 0,
                m_mult: int = 1) -> dict:
-    """The sizes a whole-run pass stages and allocates by: staging width L,
-    batch B, minimizer slots M, window slots per read, the estimated read
-    capacity, the counter flags, whether the feed is 2-bit packed, and the
-    buffer bytes per read that the budget is held against.
+    """core/fastx_feed.staging_plan with the whole-run pass's own sizes:
+    the estimated read capacity, the counter flags, reads per staged chunk,
+    and the buffer bytes per read that the budget is held against.
 
     A re-planned pass names its width L (an over-long read came) or
     multiplies the minimizer and window slots by m_mult (reads overflowed
     them), each capped where it holds every position and window."""
-    from ..ops.extract import capacity
     from ..ops.sort_count import counter_flags, window_slot_capacity
 
-    mean_len, mx = fastx.read_first_n_reads(reads_path, 100)
-    L = L or params.max_read_len or staging_width(mx)
-    B = params.batch_reads
-    M = min(L, capacity(params, L) * m_mult)
-    fsize = os.path.getsize(reads_path)
-    if str(reads_path).endswith((".gz", ".lz4")):
-        fsize *= 6  # DNA text compresses ~3.5-4x; headroom on top
-    est_reads = max(1024, int(1.5 * fsize / max(1, mean_len)))
+    plan = staging_plan(reads_path, params, L=L)
+    B, L = plan["B"], plan["L"]
+    M = min(L, plan["M"] * m_mult)
+    est_reads = max(1024, int(1.5 * plan["input_bytes"]
+                              / max(1, plan["mean_len"])))
     w_slot = window_slot_capacity(params, B, L, M)
     flags = counter_flags(params)
     if flags["use_bf"]:
@@ -380,11 +376,9 @@ def plan_table(reads_path: str, params: Params, L: int = 0,
     if m_mult > 1:
         w_slot = max(8, min(M - params.k + 1, w_slot * m_mult))
     return dict(
-        L=L, B=B, M=M, w_slot=w_slot, m_mult=m_mult, mean_len=mean_len,
-        flags=flags,
+        plan, M=M, w_slot=w_slot, m_mult=m_mult, flags=flags,
         read_cap=((est_reads + B - 1) // B) * B,
         chunk_reads=CHUNK_BATCHES * B,
-        packed=L % 8 == 0,  # 2-bit + mask feed (ops/pack)
         # three int64 key planes per window row; mh int64 + mp int32
         # (+ mpe int32) per minimizer slot
         per_read=24 * w_slot + (16 if flags["with_ext"] else 12) * M)
@@ -399,30 +393,6 @@ def new_table_counter(params: Params, plan: dict, dev: torch.device):
         w_slot=plan["w_slot"], chunk_slots=1, device=dev,
         minab=params.min_kmer_abundance,
         emit_overlap_keys=minimizer_recompute_ok(params), **plan["flags"])
-
-
-def construct_table_chunk(params: Params, plan: dict, counter, codes, lens,
-                          fill: int, read_base: int):
-    """One parsed chunk of `fill` reads, packed, copied to the counter's
-    device and appended to its buffers at read row read_base (growing them
-    when they are full).  Returns construct_batches' overflow count, a
-    device scalar."""
-    from ..ops.pack import pack_codes_np
-    from ..ops.sort_count import construct_batches
-
-    if read_base + plan["chunk_reads"] > counter.read_cap:
-        counter.grow(read_base + plan["chunk_reads"])
-    dev = counter.buffers[0].device
-    host = pack_codes_np(codes) if plan["packed"] else (codes,)
-    staged = tuple(torch.from_numpy(a).to(dev) for a in host)
-    B = plan["B"]
-    _n, n_over = construct_batches(
-        params, staged if plan["packed"] else staged[0],
-        torch.from_numpy(lens).to(dev), counter.buffers, B=B, M=plan["M"],
-        w_slot=plan["w_slot"], batch_lo=0,
-        batch_hi=min(CHUNK_BATCHES, (fill + B - 1) // B),
-        read_base=read_base)
-    return n_over
 
 
 def assemble_device_table(reads_path: str, params: Params, prefix: str,
@@ -498,11 +468,12 @@ def assemble_device_table(reads_path: str, params: Params, prefix: str,
 
 def _table_pass(reads_path: str, params: Params, prefix: str, plan: dict,
                 dev: torch.device, timer: PhaseTimer, stats: dict):
-    """One whole-run pass under `plan`: None when it wrote the outputs and
-    filled `stats`, or the plan to restart under when a read is longer
-    than the staging width or reads overflowed their slots (whatever the
-    pass had written is abandoned; the restart rewrites it)."""
-    from .fastx_feed import stream_chunks
+    """One whole-run pass under `plan`, fed by core/fastx_feed.StagedFeed:
+    None when it wrote the outputs and filled `stats`, or the plan to
+    restart under when a read is longer than the staging width or reads
+    overflowed their slots (whatever the pass had written is abandoned; the
+    restart rewrites it)."""
+    from ..ops.sort_count import construct_batches
 
     rec_ok = minimizer_recompute_ok(params)
     counter = new_table_counter(params, plan, dev)
@@ -556,45 +527,54 @@ def _table_pass(reads_path: str, params: Params, prefix: str, plan: dict,
         if "em" in phase:
             phase["em"].gfa.abort()
 
-    longest = 0  # the longest read past the staging width
+    longest = 0  # the widest staging width an over-long read asked for
+    B = plan["B"]
     try:
         with timer.phase("extract+count(device)"):
             chunks_flushed = 0
-            for codes, lens, cblob, cblob_off, fill in stream_chunks(
-                    reads_path, CH, plan["B"], plan["L"], plan["mean_len"],
-                    timer=timer):
-                if fill == 0:
-                    continue
-                if codes.shape[1] != plan["L"]:
-                    # an over-long read (the feed hands it over alone): the
-                    # pass will restart at the staging width of the longest
-                    # such read, so the rest of the input is only parsed
-                    longest = max(longest, int(lens[0]))
-                if longest:
-                    continue
-                n_over_acc.append(construct_table_chunk(
-                    params, plan, counter, codes, lens, fill, read_base))
-                read_base += CH
-                # rows past fill are never referenced: length-0 rows
-                # produce no windows
-                ro = np.full(CH, bytes_base, dtype=np.int64)
-                ro[:fill] += cblob_off[:fill]
-                blob_parts.append(cblob)
-                row_off_parts.append(ro)
-                bytes_base += int(cblob.size)
-                nb_reads += fill
-                chunks_flushed += 1
-                if (chunks_flushed == trigger_chunks and "em" not in phase
-                        and rec_ok):
-                    start_phase1()
+            with StagedFeed(reads_path, params, plan, dev, timer) as feed:
+                for chunk in feed:
+                    if chunk.plan is not plan:
+                        # an over-long read (the feed stages it alone at its
+                        # own width): the pass will restart at the widest
+                        # such width, so the rest of the input is only fed
+                        longest = max(longest, chunk.plan["L"])
+                    if not longest:
+                        if read_base + CH > counter.read_cap:
+                            counter.grow(read_base + CH)
+                        n_over_acc.append(construct_batches(
+                            params, chunk.planes, chunk.lens,
+                            counter.buffers, B=B, M=plan["M"],
+                            w_slot=plan["w_slot"], batch_lo=0,
+                            batch_hi=min(CHUNK_BATCHES,
+                                         (chunk.fill + B - 1) // B),
+                            read_base=read_base)[1])
+                    fill, cblob, cblob_off = (chunk.fill, chunk.blob,
+                                              chunk.blob_off)
+                    del chunk  # its staged tensors, before the slot frees
+                    feed.release()
+                    if longest:
+                        continue
+                    read_base += CH
+                    # rows past fill are never referenced: length-0 rows
+                    # produce no windows
+                    ro = np.full(CH, bytes_base, dtype=np.int64)
+                    ro[:fill] += cblob_off[:fill]
+                    blob_parts.append(cblob)
+                    row_off_parts.append(ro)
+                    bytes_base += int(cblob.size)
+                    nb_reads += fill
+                    chunks_flushed += 1
+                    if (chunks_flushed == trigger_chunks
+                            and "em" not in phase and rec_ok):
+                        start_phase1()
             if "thread" in phase:
                 phase["thread"].join()  # phase 1 ran under the stream
                 if "error" in phase:
                     raise phase["error"]
             if longest:
                 abandon()
-                return plan_table(reads_path, params,
-                                  L=staging_width(longest),
+                return plan_table(reads_path, params, L=longest,
                                   m_mult=plan["m_mult"])
             if sum(int(x) for x in n_over_acc):
                 # reads or batches over their minimizer or window slots:

@@ -8,7 +8,7 @@ TPU-side equivalent of the reference's seq_io parser thread + worker pool
 (rust-mdbg src/main.rs:834-838).
 
 Yields NativeChunk objects: fixed-shape code tensors (or, in packed mode,
-the chunked driver's staged 2-bit and mask planes, written by the parser's
+the feed's staged 2-bit and mask planes, written by the parser's
 encode threads) plus the concatenated raw-byte blob and offsets (no
 per-read Python objects — at 114 Gbp scale, object churn IS the parser
 bottleneck).
@@ -50,7 +50,7 @@ class NativeChunk:
              meaningful (callers mask by length).  None in packed mode,
              but for an over-long read's singleton chunk.
     planes:  packed mode: (packed uint8 [cap, W/4], mask uint8 [cap, W/8]),
-             core/chunked.host_feed's arrays for these reads, W the half
+             core/fastx_feed.host_feed's arrays for these reads, W the half
              width where every read fits it, else L; None otherwise.
     lengths: int32 [cap]; rows >= n are 0.
     raw:     concatenated sequence bytes of the n reads.

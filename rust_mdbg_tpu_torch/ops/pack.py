@@ -2,11 +2,11 @@
 
 Read codes are 0..3 (A/C/G/T), 4 (N) or 5 (pad).  The feed packs 4 codes per
 byte plus a 1 bit/base invalid mask (N or pad), 0.375 B/base on the wire
-instead of 1.  Packing runs on the host before the transfer: in the chunked
-driver the native parser writes these planes itself, in its parallel
-encode (native/fastx.cpp fx_next_packed); pack_codes_np packs codes
-everywhere else (the whole-run and sharded feeds, the bench, an over-long
-read, the pure-Python reader).  Unpacking runs on the device per batch
+instead of 1.  Packing runs on the host before the transfer: the native
+parser writes these planes itself, in its parallel encode (native/fastx.cpp
+fx_next_packed); pack_codes_np packs codes everywhere else, through
+core/fastx_feed.host_feed (an over-long read, the pure-Python reader, the
+sharded drivers' rounds) and in the bench.  Unpacking runs on the device per batch
 inside the construct loop, so the full-width [chunk, L] byte tensor never
 exists in device memory.
 """

@@ -11,7 +11,7 @@ Input (the reference's per-thread seq_io partitioning, main.rs:834-838):
 a comma-separated file list is dealt round-robin over the processes; a
 single plain FASTA is split by byte range, a record belonging to the range
 that holds its '>' (fasta_range_records).  A process reads its share
-through the chunked driver's native reader, which starts at the first
+through core/fastx_feed's native reader, which starts at the first
 record of its range and stops after the range's last (counted by a byte
 scan, count_range_records), and stages it as the sharded pipeline does.  Every process runs the same number of rounds
 (one up-front exchange of record counts) and feeds empty rows past its own
@@ -362,7 +362,7 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
     (with `spans` and `counters`: utils/timing.PhaseTimer's record of this
     process's `job`) and the per-shard windows and unique keys of this
     process's shards."""
-    from ..core.chunked import host_feed, plan_chunks
+    from ..core.fastx_feed import staged_rounds, staging_plan
     from ..io.sequences import remove_stale, write_records_native
     from ..ops import u64
     from ..ops.kernels import build_all
@@ -370,8 +370,7 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
     from .edges import gfa_parts, route_records
     from .pipeline import (RawBlob, ShardedPipeline, exact_rounds,
                            gathered_gfa, host_nodes, prefetched,
-                           record_spans, sharded_edges_enabled,
-                           staged_rounds)
+                           record_spans, sharded_edges_enabled)
 
     timer = PhaseTimer()
     with timer.job():
@@ -384,8 +383,8 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
         B = ((params.batch_reads + n - 1) // n) * n
         B_host, B_local = B // nproc, B // n
         # sizes must agree on every process: take them from the whole input
-        plan = plan_chunks([p for p in str(reads_path).split(",") if p][0],
-                           params, chunk_reads=B)
+        plan = staging_plan([p for p in str(reads_path).split(",") if p][0],
+                            params)
         pipe = ShardedPipeline(mesh, params, B_local, plan["M"])
 
         if pid == 0:
@@ -399,8 +398,9 @@ def assemble_multihost(reads_path: str, params: Params, prefix: str,
             share_chunks(inputs, B_host, plan["L"], plan["mean_len"]), B_host,
             plan["L"]), plan))
         lens0 = np.zeros(B_host, dtype=np.int32)
-        empty = host_feed(full_fast((B_host, plan["L"]), 5, np.uint8), lens0,
-                          B_host, plan)
+        ((empty, *_),) = staged_rounds(
+            [(full_fast((B_host, plan["L"]), 5, np.uint8), lens0, None, None,
+              0)], plan)
         read_base = 0
         try:
             for _ in range(rounds):

@@ -83,21 +83,21 @@ class ShardedPipeline:
         return rows, out["overflow"].sum()
 
     def step(self, host: tuple, lengths: np.ndarray, read_base: int):
-        """One round: host is core/chunked.host_feed's arrays of the rows
-        of this process's shards ((packed, mask) or (codes,)), lengths
-        their read lengths; local shard i takes rows [i * B_local,
-        (i + 1) * B_local).  read_base is the global row of the round's
-        first read.  Raises on an extraction overflow."""
-        from ..core.chunked import to_device
+        """One round: host is core/fastx_feed.staged_rounds' planes
+        (packed, mask) of the rows of this process's shards, lengths their
+        read lengths; local shard i takes rows [i * B_local, (i + 1) *
+        B_local).  read_base is the global row of the round's first read.
+        Raises on an extraction overflow."""
+        from ..core.fastx_feed import to_device
         from ..ops.pack import unpack_codes
 
         n, Bl = self.mesh.n, self.B_local
         sends, n_over = [], []
         for i, (s, dev) in enumerate(zip(self.mesh.local, self.mesh.devices)):
             rs = slice(i * Bl, (i + 1) * Bl)
-            staged, lens = to_device(tuple(a[rs] for a in host),
+            planes, lens = to_device(tuple(a[rs] for a in host),
                                      lengths[rs], dev)
-            codes = unpack_codes(*staged) if len(staged) == 2 else staged[0]
+            codes = unpack_codes(*planes)
             self.widths.add(int(codes.shape[1]))
             rows, over = self._window_rows(codes, lens, read_base, s)
             sends.append(bucket_by_owner(rows, owner_of(rows[:, 0], n), n))
@@ -260,17 +260,6 @@ def exact_rounds(chunks, B: int, L: int):
         yield _take_rows(pend, have, B, L)
 
 
-def staged_rounds(rounds, plan: dict):
-    """exact_rounds' tuples as (host_feed's arrays, lengths, blob,
-    blob_off, fill): cut to the plan's half width where the round's reads
-    fit and 2-bit packed, as the chunked driver stages a chunk."""
-    from ..core.chunked import host_feed
-
-    for codes, lens, blob, blob_off, fill in rounds:
-        yield (host_feed(codes, lens, len(lens), plan), lens, blob,
-               blob_off, fill)
-
-
 def prefetched(items):
     """Iterate `items` one item ahead in a thread of its own, so that the
     host feed (parse, cut, pack) overlaps the device steps.  An error of
@@ -363,12 +352,12 @@ def assemble_sharded(reads_path: str, params, prefix: str,
     latter), `staged_shapes` (the [rows, width] a shard's extraction ran
     at) and `device`.
 
-    The feed is the chunked driver's (core/chunked.plan_chunks): the
-    native reader, re-cut to rounds of exactly B reads, each cut to the
-    half staging width where its reads fit and 2-bit packed, one round
-    ahead in a thread; `feed` is the time the steps wait for it."""
-    from ..core.chunked import plan_chunks
-    from ..core.fastx_feed import stream_chunks
+    The feed is core/fastx_feed's (staging_plan, stream_chunks,
+    staged_rounds): the native reader, re-cut to rounds of exactly B
+    reads, each cut to the half staging width where its reads fit and
+    2-bit packed, one round ahead in a thread; `feed` is the time the
+    steps wait for it."""
+    from ..core.fastx_feed import staged_rounds, staging_plan, stream_chunks
     from ..io.sequences import remove_stale, write_records_native_sharded
     from ..ops.kernels import build_all
     from .edges import gfa_parts
@@ -385,7 +374,7 @@ def assemble_sharded(reads_path: str, params, prefix: str,
             if mesh.devices[0].type == "cuda":
                 build_all()
         B = ((params.batch_reads + n - 1) // n) * n
-        plan = plan_chunks(reads_path, params, chunk_reads=B)
+        plan = staging_plan(reads_path, params)
         pipe = ShardedPipeline(mesh, params, B // n, plan["M"])
 
         remove_stale(prefix)

@@ -30,10 +30,6 @@ def revcomp(dna: str) -> str:
 _TRANS = str.maketrans({chr(b): chr(_COMP_TABLE[b]) for b in range(256)})
 
 
-def revcomp_bytes(dna: bytes) -> bytes:
-    return dna.translate(_COMP_TABLE)[::-1]
-
-
 def normalize_vec(seq) -> tuple:
     """Canonical form of an arbitrary-length minimizer vector: min(seq, reversed)."""
     s = tuple(int(x) for x in seq)

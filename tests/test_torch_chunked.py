@@ -98,12 +98,12 @@ def test_chunked_matches_jax(tmp_path, reads, chunk_reads):
     assert st["nb_windows"] == sj["nb_windows"]
 
 
-#: how the recompute-mode run makes its edges: the device join, the host
-#: join from the start, or a catalog too small for the run (424 nodes),
-#: which spills to the host at the first or at a later chunk
-JOINS = {"device": {}, "host": {"MDBG_CHUNK_DEVICE_JOIN": "0"},
-         "spill_first": {"MDBG_CHUNK_CAT_CAP": "10"},
-         "spill_later": {"MDBG_CHUNK_CAT_CAP": "300"}}
+#: the device catalog's rows (core/chunked.CATALOG_ROWS) a recompute-mode
+#: run is given: the default, where the device join makes the edges, or a
+#: catalog too small for the run (424 nodes), which spills to the host join
+#: at the first chunk, at a later one, or at the last ("host": one row
+#: under the run's node count, which only the last crossing passes)
+JOINS = {"device": None, "host": -1, "spill_first": 10, "spill_later": 300}
 
 
 @pytest.fixture(scope="module")
@@ -123,9 +123,13 @@ def jax_hpc_runs(hpc_reads, tmp_path_factory):
 @pytest.mark.parametrize("chunk_reads", [64, 256])
 def test_prehpc_chunked_matches_jax(tmp_path, monkeypatch, hpc_reads,
                                     jax_hpc_runs, chunk_reads, join):
+    from rust_mdbg_tpu_torch.core import chunked
+
     pj, sj = jax_hpc_runs[chunk_reads]
-    for name, value in JOINS[join].items():
-        monkeypatch.setenv(name, value)
+    rows = JOINS[join]
+    if rows is not None:
+        monkeypatch.setattr(chunked, "CATALOG_ROWS",
+                            sj["nb_nodes"] + rows if rows < 0 else rows)
     pt = str(tmp_path / "torch")
     st = assemble_device_chunked(hpc_reads,
                                  Params(reads_already_hpc=True, **KW), pt,
@@ -140,6 +144,8 @@ def test_prehpc_chunked_matches_jax(tmp_path, monkeypatch, hpc_reads,
     if join == "device":
         assert st["catalog_rows"] == st["nb_nodes"]
         assert st["n_pot"] >= st["nb_edges"]
+    else:  # spilled: no catalog left at the end
+        assert "catalog_rows" not in st
 
 
 def test_prehpc_join_overflow_falls_back_to_host(tmp_path, monkeypatch,

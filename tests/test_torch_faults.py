@@ -24,7 +24,7 @@ from rust_mdbg_tpu_torch import cli
 from rust_mdbg_tpu_torch.core import pipeline
 from rust_mdbg_tpu_torch.core.chunked import assemble_device_chunked
 from rust_mdbg_tpu_torch.io import fastx_native
-from rust_mdbg_tpu_torch.params import Params
+from rust_mdbg_tpu_torch.params import Params, staging_width
 
 from torch_corpus import gfa_bytes, records, write_hpc_reads, write_raw_reads
 
@@ -52,6 +52,22 @@ def corpora(tmp_path_factory):
         f.write("\n".join(lines))
     return dict(raw=raw, long=long,
                 long_hpc=write_hpc_reads(long, str(d / "long_hpc.fa")))
+
+
+@pytest.fixture(scope="module")
+def odd_width_reads(tmp_path_factory):
+    """torch_corpus' reads at 30x and 1,004 bp at most, the 150th replaced
+    by three full-length reads end to end (3,012 bp)."""
+    d = tmp_path_factory.mktemp("odd_width")
+    raw = write_raw_reads(str(d / "raw.fa"), coverage=30, read_len=1004)
+    with open(raw) as f:
+        lines = f.read().split("\n")
+    full = [x for x in lines[1::2] if len(x) == 1004]
+    lines[2 * 149 + 1] = "".join(full[:3])
+    path = str(d / "odd.fa")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return path
 
 
 def _jax_streaming(path, prefix, monkeypatch, **kw):
@@ -86,6 +102,28 @@ def test_replans_match_jax_fallback(tmp_path, corpora, monkeypatch, kind,
     assert ("nb_chunks" in st) and (("phase1_nodes" in st) == (minab == 17))
 
 
+@pytest.mark.parametrize("minab", [2, 17])
+def test_max_read_len_off_the_byte_grid_matches_jax(tmp_path, monkeypatch,
+                                                    odd_width_reads, minab):
+    """--max-read-len 1001, not a multiple of 8, stages at 1,008: the reads
+    of 1,002-1,004 bp fit that width (the JAX package's 1,001 hands each
+    over alone) and only the 3,012 bp read is over-long, packed on the
+    host.  The chunked driver (minabund 2) and the whole run (17) write
+    the JAX package's bytes."""
+    kw = dict(KW, min_kmer_abundance=minab, max_read_len=1001)
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "torch")
+    sj = _jax_streaming(odd_width_reads, pj, monkeypatch, **kw)
+    st = pipeline.assemble(odd_width_reads, Params(**kw), pt, device="cpu")
+    assert gfa_bytes(pj) == gfa_bytes(pt)
+    assert records(pj) == records(pt)
+    assert st["nb_nodes"] == sj["nb_nodes"] > 40
+    assert st["nb_reads"] == sj["nb_reads"]
+    assert st["replans"] == 1
+    c = st["counters"]
+    assert c["feed.host_packed_chunks"] == 1
+    assert c["feed.parser_packed_chunks"] >= st["nb_chunks"] - 1
+
+
 def test_long_read_chunk_is_its_own(tmp_path, corpora):
     """The over-long read is one singleton chunk of its own, between the
     chunks before and after it, and counts one re-plan."""
@@ -114,7 +152,7 @@ def test_over_budget_route_at_minabund_17(tmp_path, corpora, monkeypatch,
         with open(corpora[kind]) as f:
             longest = max(len(x) for x in f.read().split("\n")[1::2])
         plan = pipeline.plan_table(corpora[kind], Params(**kw),
-                                   L=pipeline.staging_width(longest))
+                                   L=staging_width(longest))
     need = plan["read_cap"] * plan["per_read"]
     pj, pt = str(tmp_path / "jax"), str(tmp_path / "torch")
     _jax_streaming(corpora[kind], pj, monkeypatch, **kw)

@@ -14,7 +14,7 @@ import time
 import pytest
 import torch
 
-from rust_mdbg_tpu_torch.core.chunked import STAGER_THREAD
+from rust_mdbg_tpu_torch.core.fastx_feed import STAGER_THREAD
 from rust_mdbg_tpu_torch.core.pipeline import assemble
 from rust_mdbg_tpu_torch.io.fastx_native import PUMP_THREAD
 from rust_mdbg_tpu_torch.params import Params

@@ -141,6 +141,11 @@ def test_assemble_minabund_17_routes_to_table(tmp_path, corpora, kind):
     assert records(pj) == records(pt)
     assert st["nb_nodes"] == sj["nb_nodes"] > 50
     assert st["nb_edges"] == sj["nb_edges"] > 50
+    # every chunk staged from the parser's planes, as the chunked driver's
+    c = st["counters"]
+    assert c["feed.parser_packed_chunks"] == st["nb_chunks"] > 1
+    assert c["feed.host_packed_chunks"] == 0
+    assert c["feed.staged_high"] == 1
 
 
 def test_assemble_minabund_2_routes_to_chunked(tmp_path, corpora):
